@@ -1,0 +1,1 @@
+"""Graph ops and the hand-written CUDA kernels."""
