@@ -2,65 +2,125 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, cached relocalization serving on preset R3,
-once at full width, and checks every hand-written kernel on the way.  Each
-phase prints one line; any failure raises, and the run exits non-zero
-without a result line.  There is no CPU fallback: without CUDA it exits 1
-at once.
+Drives the port's main paths once at full width and checks every
+hand-written kernel on the way.  Each phase prints one line per item; any
+failure raises, and the run exits non-zero without a result line.  There
+is no CPU fallback: without CUDA it exits 1 at once.
 
-  1. device  the card's name; `nvidia-smi` name and power limit; TF32 off
-  2. build   the CUDA kernels, compiled from csrc/ (seconds, registers)
-  3. kernel  each kernel against its plain PyTorch version on the card,
-             float32 and bfloat16 inputs, rtol = atol = 1e-5
-  4. slice   R3 (ResNet34, dims 2048, kNN-4 compact edges, BN folded),
-             seeded random weights, bfloat16: `evaluate_scene_cached` over
-             a synthetic packed store of 48 query graphs at 256x341 with 64
-             database frames, batch 16; predictions finite [48, 6]; the
-             attention kernel launched gnn_recursion x batches times; pose
-             error medians (meaningless on random weights); then one
-             float32 batch with the kernel against the same batch with the
-             plain core swapped in, and against its neighbours encoded
-             from the graphs' own pixels instead of the database cache
-  5. time    CUDA events, median of 20 iterations after warm-up: the
-             attention core (kernel vs plain) and the R3 cached eval step
-             at batch 128 in bfloat16 (queries/s, peak device memory)
+  device    the card's name; `nvidia-smi` name and power limit; TF32 off
+  build     every CUDA kernel in csrc/, compiled side by side (seconds,
+            registers, shared memory, spills)
+  kernel    each kernel against its plain PyTorch version on the card:
+            attention_core at four shapes, float32 and bfloat16 inputs,
+            rtol = atol = 1e-5; fused_pair_mlp at the four shapes of
+            tests/test_pallas_gnn.py in float32 (rtol 1e-4, atol 1e-3, as
+            the JAX tests hold the TPU kernel) and in bfloat16, and at
+            E = 1024 with every width 2048 in bfloat16, 'edge' and 'msg'
+            (bfloat16: see PAIR_BF16_TOL)
+  pair_mlp  the bench entry `benchmarks/bench_pair_mlp.py::main` at
+            B = 16, N = 8, dims 2048, in process; the pair-MLP kernel's
+            launches counted
+  slice     R3 (ResNet34, dims 2048, kNN-4 compact edges, BN folded),
+            seeded random weights, bfloat16: `evaluate_scene_cached` over
+            a synthetic packed store of 48 query graphs at 256x341 with 64
+            database frames, batch 16; predictions finite [48, 6]; the
+            attention kernel launched gnn_recursion x batches times; then
+            one float32 batch with the kernel against the same batch with
+            the plain core swapped in, and against its neighbours encoded
+            from the graphs' own pixels instead of the database cache
+  service   the relocalization service, R3 + NetVLADEncoder (VGG16, 64
+            clusters x 512 = 32768-D, retrieval at 192x256), synthetic
+            uint8 frames at 256x341, in `netvlad` and in `shared-trunk`
+            mode: build 1024 frames into capacity 2048, add 256,
+            invalidate 64, compact, save, load into a new service; 128
+            uint8 queries, deterministic and stochastic; a stream of 4
+            batches of 32.  Checks are listed at `exercise_service`.
+  time      CUDA events, median of 20 iterations after warm-up, the forms
+            compared in turns within this one run: the attention core and
+            the R3 cached eval step at batch 128 (kernel vs plain core);
+            the service's query step at batch 128 in both retrieval modes
+            with its stages and a `torch.profiler` window (busy and idle
+            share, kernels by time); the pair MLP (kernel, plain, the
+            concat and split-weight library forms) at E = 1024 and 16384
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is the kernels' JSON record (then the card once
+more); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from relpose_gnn_tpu.data.packed import PackedGraphDataset, PackedGraphWriter
+from relpose_gnn_tpu_torch.benchmarks import bench_pair_mlp
+from relpose_gnn_tpu_torch.data.packed import (PackedGraphDataset,
+                                               PackedGraphWriter)
 from relpose_gnn_tpu_torch.data.pipeline import make_normalizer
 from relpose_gnn_tpu_torch.evaluation import serving
 from relpose_gnn_tpu_torch.evaluation.evaluator import compute_pose_errors
+from relpose_gnn_tpu_torch.evaluation.service import (RelocalizationService,
+                                                      ServiceConfig)
 from relpose_gnn_tpu_torch.models.fold_bn import fold_relpose_backbone
+from relpose_gnn_tpu_torch.models.netvlad import NetVLADEncoder
 from relpose_gnn_tpu_torch.models.posenet import (RelPoseGNN,
                                                   RelPoseGNNConfig,
                                                   init_weights)
-from relpose_gnn_tpu_torch.ops import _build, att_core
+from relpose_gnn_tpu_torch.ops import _build, att_core, pair_mlp
+from relpose_gnn_tpu_torch.retrieval.subsample import fold_in
 
 SEED = 0
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 # kernel vs plain core inside the whole float32 model: the core agrees to
 # ~1e-6 relative, and the layers after it carry that through
 SLICE_TOL = dict(rtol=1e-4, atol=1e-4)
+PAIR_F32_TOL = dict(rtol=1e-4, atol=1e-3)
+# bfloat16 pair MLP, max |kernel - plain| over max |out|.  Both round the
+# hidden activation to bfloat16, but sum the first product in another
+# order, so a hidden value within float32 rounding of a bfloat16 boundary
+# rounds the other way in one of them: a flip of one bfloat16 ulp,
+# 2^-8 |h|, which moves an output by 2^-8 |h| |w2|.  An output is a sum
+# of H = 2048 terms h * w2, about sqrt(H) * rms(h * w2) = 45 rms; a few
+# (up to ~8) flips of above-average terms (3 rms) in one row move it by
+# 8 * 2^-8 * 3 rms = 0.09 rms, which is 2e-3 of 45 rms.
+PAIR_BF16_TOL = 2e-3
 H, W = 256, 341
 N_DB, N_QUERIES, BATCH = 64, 48, 16
 BENCH_BATCH, ITERS = 128, 20
+MEAN, STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense)
+PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
+# exponentials per second: 16 per SM per clock x 132 SMs x 1.98 GHz; an
+# estimate of the special-function rate, which no data sheet states
+PEAK_EXP = 16 * 132 * 1.98e9
+
+
+@dataclasses.dataclass
+class ServiceSizes:
+    """How much of a deployment the service phase holds and asks."""
+    build: int = 1024
+    capacity: int = 2048
+    add: int = 256
+    invalidate: int = 64
+    queries: int = 128
+    embed_batch: int = 32
+    stream_batches: int = 4
+    stream_batch: int = 32
+    retrieval_hw: tuple = (192, 256)
 
 
 def phase(name: str, msg: str) -> None:
@@ -95,8 +155,106 @@ def cuda_median_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def check_kernels(dev) -> float:
-    """Phase 3: attention kernel vs plain; returns the largest error."""
+def in_turns(forms: dict, iters: int = ITERS) -> dict:
+    """Median ms of each form, timed forwards then backwards (a, b, c, c,
+    b, a) so that clock drift falls on all alike; the mean of the two."""
+    names = list(forms)
+    runs = {n: [] for n in names}
+    for n in names + names[::-1]:
+        runs[n].append(cuda_median_ms(forms[n], iters))
+    return {n: statistics.mean(v) for n, v in runs.items()}
+
+
+def short_kernel_name(name: str) -> str:
+    for noise in ("void ", "at::native::", "(anonymous namespace)::",
+                  "c10::"):
+        name = name.replace(noise, "")
+    return name[:150]
+
+
+def profile_step(label: str, fn, step_ms: float, steps: int = 5) -> None:
+    """`torch.profiler` over `steps` calls of fn after warm-up: the
+    device's busy time (union of kernel intervals), the span from the
+    first kernel's start to the last one's end, kernel launches per step
+    and the kernels that take most of the time.  The profiler slows the
+    host, so two idle shares are given: within the profiled span, and of
+    `step_ms`, the step's device time measured without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        phase("time", f"{label}: the profiler recorded no device "
+              "activity; busy and idle share not measured")
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    for start, end in spans[1:]:
+        if start > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = start, end
+        else:
+            cur_e = max(cur_e, end)
+    busy += cur_e - cur_s
+    span = spans[-1][1] - spans[0][0]
+    phase("time", f"{label}, profiled over {steps} steps: device busy "
+          f"{busy / steps / 1e3} ms of a {span / steps / 1e3} ms span per "
+          f"step (idle share {1 - busy / span} under the profiler); of "
+          f"the unprofiled {step_ms} ms step the idle share is "
+          f"{1 - busy / steps / 1e3 / step_ms}; "
+          f"{len(kernels) / steps} device launches per step")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    for name, us in top:
+        phase("time", f"    {us / steps / 1e3:.4f} ms/step "
+              f"({us / busy:.1%} of busy)  {short_kernel_name(name)}")
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
+
+def build_kernels() -> None:
+    """Compile every csrc/*.cu, one nvcc each, all started together."""
+    def one(name):
+        t0 = time.perf_counter()
+        lib = _build.build(name)
+        return name, lib, time.perf_counter() - t0
+
+    names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
+    check(names == ["att_core", "pair_mlp"], f"kernel sources {names}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(one, names))
+    for name, lib, secs in built:
+        with open(f"{lib}.log") as log:
+            used = [ln.split(" : ")[-1].strip() for ln in log
+                    if "Used" in ln or "spill" in ln]
+        phase("build", f"{name}.cu -> {lib.name} in {secs:.2f} s; "
+              f"{'; '.join(used)}")
+    phase("build", f"{len(names)} kernels side by side in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+# kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_attention_kernel(dev) -> float:
+    """attention kernel vs plain; returns the largest error."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     worst = 0.0
     for e, c in ((32, 128), (40, 256), (7, 4), (4096, 256)):
@@ -116,14 +274,127 @@ def check_kernels(dev) -> float:
     return worst
 
 
+def pair_mlp_inputs(dev, gen, b, n, d, de, h, dout, mode, dtype):
+    """x [B, N, D], e [B, N, N, De] and a concat-layout MLP2 for `mode`."""
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    k_in = (2 * d if mode == "edge" else d) + de
+    return (r(b, n, d), r(b, n, n, de),
+            r(k_in, h, scale=k_in ** -0.5).to(dtype), r(h) * 0.1,
+            r(h, dout, scale=h ** -0.5).to(dtype), r(dout) * 0.1)
+
+
+def pair_mlp_operands(x, e, fc1k, fc1b, fc2k, fc2b, mode, dtype):
+    """The arguments `pair_mlp_apply` hands to `fused_pair_mlp`."""
+    b, n, d = x.shape
+    xf = x.reshape(b * n, d).to(dtype)
+    edge = mode == "edge"
+    return dict(xs=xf, xt=xf if edge else None,
+                e=e.reshape(b * n * n, -1).to(dtype), w1a=fc1k[:d],
+                w1b=fc1k[d:2 * d] if edge else None,
+                w1c=fc1k[2 * d:] if edge else fc1k[d:], b1=fc1b, w2=fc2k,
+                b2=fc2b, nodes=n)
+
+
+def check_pair_mlp_kernel(dev) -> float:
+    """fused_pair_mlp vs fused_pair_mlp_plain; returns the largest
+    absolute error over all shapes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst = 0.0
+
+    def compare(label, ops, tol_fn):
+        nonlocal worst
+        got = pair_mlp.fused_pair_mlp(**ops)
+        want = pair_mlp.fused_pair_mlp_plain(**ops)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        worst = max(worst, err)
+        check(bool(torch.isfinite(got).all()) and tol_fn(got, want, err,
+                                                         scale),
+              f"pair-MLP kernel differs from plain at {label}: max abs "
+              f"err {err} (max |out| {scale})")
+        phase("kernel", f"fused_pair_mlp {label}: max abs err {err:.3e} "
+              f"(max |out| {scale:.3e})")
+
+    def f32_ok(got, want, err, scale):
+        return torch.allclose(got, want, **PAIR_F32_TOL)
+
+    def bf16_ok(got, want, err, scale):
+        return err <= PAIR_BF16_TOL * scale
+
+    # the four shapes of tests/test_pallas_gnn.py: two direct, two through
+    # the pair grid (E = 72 with H = 40 is ragged against every tile), in
+    # float32 (the FMA kernel) and in bfloat16 (the tensor-core kernel)
+    for dtype, ok in ((torch.float32, f32_ok), (torch.bfloat16, bf16_ok)):
+        name = str(dtype)[6:]
+        for e_rows, d, de, h, dout in ((256, 32, 16, 512, 64),
+                                       (128, 16, 16, 1024, 32)):
+            r = [torch.randn(*s, device=dev, generator=gen) for s in (
+                (e_rows, d), (e_rows, d), (e_rows, de), (d, h), (d, h),
+                (de, h), (h,), (h, dout), (dout,))]
+            ops = dict(zip(("xs", "xt", "e", "w1a", "w1b", "w1c", "b1",
+                            "w2", "b2"), r))
+            for key in ("xs", "xt", "e"):
+                ops[key] = ops[key].to(dtype)
+            for key in ("w1a", "w1b", "w1c", "w2"):
+                ops[key] = (ops[key] * 0.1).to(dtype)
+            compare(f"E={e_rows} D={d} De={de} H={h} Dout={dout} {name}",
+                    ops, ok)
+        for b, n, d, de, h, dout, mode in ((2, 6, 24, 8, 40, 8, "edge"),
+                                           (1, 4, 16, 16, 32, 16, "msg")):
+            args = pair_mlp_inputs(dev, gen, b, n, d, de, h, dout, mode,
+                                   dtype)
+            compare(f"{mode} B={b} N={n} D={d} De={de} H={h} Dout={dout} "
+                    f"{name}", pair_mlp_operands(*args, mode, dtype), ok)
+    # the bench shape in bfloat16, both modes
+    for mode in ("edge", "msg"):
+        args = pair_mlp_inputs(dev, gen, 16, 8, 2048, 2048, 2048, 2048,
+                               mode, torch.bfloat16)
+        compare(f"{mode} E=1024 D=De=H=Dout=2048 bfloat16 (max err <= "
+                f"{PAIR_BF16_TOL} max |out|)",
+                pair_mlp_operands(*args, mode, torch.bfloat16), bf16_ok)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# the pair-MLP bench entry
+# ---------------------------------------------------------------------------
+
+
+def run_pair_mlp_bench() -> int:
+    """Drives `bench_pair_mlp.main` in process; returns the pair-MLP
+    kernel's launches on that path."""
+    pair_mlp.LAUNCHES = 0
+    out = bench_pair_mlp.main(["--batch", "16", "--nodes", "8", "--dims",
+                               "2048", "--iters", str(ITERS)])
+    torch.cuda.synchronize()
+    launches = pair_mlp.LAUNCHES
+    check(launches == out["kernel_calls"] and launches > 0,
+          f"pair-MLP kernel launched {launches} times by the bench entry, "
+          f"expected {out['kernel_calls']}")
+    # the concat form rounds its output to bfloat16: 2^-9 relative at most
+    check(out["rel_max_diff"] < 2 ** -8,
+          f"bench: kernel vs concat form differ by {out['rel_max_diff']}")
+    phase("pair_mlp", f"bench entry B=16 N=8 dims 2048: kernel "
+          f"{out['ms']['kernel']} ms, concat {out['ms']['concat']} ms, "
+          f"split-weight {out['ms']['split']} ms; rel max diff vs concat "
+          f"{out['rel_max_diff']:.3e}; kernel launches {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# cached evaluation of a packed store
+# ---------------------------------------------------------------------------
+
+
 def write_store(root: str, rng: np.random.Generator) -> np.ndarray:
     """Synthetic packed store: N_QUERIES graphs [query | 7 database
     neighbours] at HxW; returns the uint8 database frames."""
     db = rng.integers(0, 256, size=(N_DB, H, W, 3), dtype=np.uint8)
     db_poses = rng.normal(size=(N_DB, 6)).astype(np.float32)
-    writer = PackedGraphWriter(root, N_QUERIES, 8, H, W,
-                               mean=[0.485, 0.456, 0.406],
-                               std=[0.229, 0.224, 0.225])
+    writer = PackedGraphWriter(root, N_QUERIES, 8, H, W, mean=MEAN, std=STD)
     for _ in range(N_QUERIES):
         nbr = rng.choice(N_DB, 7, replace=False)
         query = rng.integers(0, 256, size=(1, H, W, 3), dtype=np.uint8)
@@ -152,8 +423,21 @@ def r3_model(dev) -> RelPoseGNN:
     return folded
 
 
+def netvlad_encoder(dev) -> NetVLADEncoder:
+    """VGG16 + NetVLAD at the published size (64 clusters x 512), seeded
+    weights, bfloat16 compute like the pose model."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    with torch.device(dev):
+        enc = NetVLADEncoder(num_clusters=64, encoder_dim=512,
+                             dtype=torch.bfloat16).eval()
+    init_weights(enc, gen)
+    with torch.no_grad():
+        enc.pool.centroids.uniform_(0, 1, generator=gen)
+    return enc
+
+
 def run_slice(dev, model: RelPoseGNN, tmp: str) -> int:
-    """Phase 4; returns the attention-kernel launches of the main path."""
+    """Returns the attention-kernel launches of this path."""
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     db = write_store(tmp, rng)
@@ -165,7 +449,7 @@ def run_slice(dev, model: RelPoseGNN, tmp: str) -> int:
     att_core.LAUNCHES = 0
     t0 = time.perf_counter()
     out = serving.evaluate_scene_cached(model, ds, db, batch_size=BATCH,
-                                        fuse="first", device=dev)
+                                        fuse="first")
     torch.cuda.synchronize()
     launches = att_core.LAUNCHES
     wall = time.perf_counter() - t0
@@ -190,8 +474,7 @@ def run_slice(dev, model: RelPoseGNN, tmp: str) -> int:
     model32.load_state_dict(model.state_dict(), strict=True)
     normalize = make_normalizer(ds.mean, ds.std, dev)
     batch = ds.batch(np.arange(BATCH), with_nbr_idx=True)
-    emb = serving.embed_database(model32,
-                                 normalize(torch.from_numpy(db)), device=dev)
+    emb = serving.embed_database(model32, normalize(torch.from_numpy(db)))
     args = (normalize(torch.from_numpy(batch["images"][:, 0])),
             emb[torch.from_numpy(batch["nbr_idx"].astype(np.int64)).to(dev)],
             torch.from_numpy(batch["poses"][:, 1:]).to(dev),
@@ -228,9 +511,235 @@ def run_slice(dev, model: RelPoseGNN, tmp: str) -> int:
     return launches
 
 
-def time_all(dev, model: RelPoseGNN, card: str) -> dict:
-    """Phase 5: device times.  Returns the attention core's at the main
-    path's shape (E = 32 x batch 128, C = 256, bf16 inputs)."""
+# ---------------------------------------------------------------------------
+# the relocalization service
+# ---------------------------------------------------------------------------
+
+
+def synthetic_frames(dev, n: int, seed: int) -> np.ndarray:
+    """n uint8 frames [n, H, W, 3], made on the card in bulk: each is a
+    smooth random colour field (a 6x8 grid enlarged to HxW) plus pixel
+    noise, so frames differ in their large-scale structure the way views
+    of different places do, and no two are near-duplicates."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for i in range(0, n, 128):
+        k = min(128, n - i)
+        coarse = torch.rand(k, 3, 6, 8, device=dev, generator=gen)
+        img = F.interpolate(coarse, size=(H, W), mode="bicubic",
+                            align_corners=False)
+        img = img + 0.05 * torch.randn(k, 3, H, W, device=dev, generator=gen)
+        img = (img.clamp(0, 1) * 255).to(torch.uint8).permute(0, 2, 3, 1)
+        out.append(img.contiguous().cpu().numpy())
+    return np.concatenate(out)
+
+
+def same_result(a: dict, b: dict) -> bool:
+    """Two query results, tensors on the card or numpy, bit for bit."""
+    return all(torch.equal(torch.as_tensor(a[k]).cpu(),
+                           torch.as_tensor(b[k]).cpu())
+               for k in ("pose", "neighbors", "anchor"))
+
+
+def exercise_service(dev, model: RelPoseGNN, netvlad, mode: str,
+                     sizes: ServiceSizes, tmp: str) -> tuple:
+    """One retrieval mode through the database life cycle and the query
+    forms.  Returns (the deterministic service, its query batch, the
+    attention kernel's launches on this path).  Checks:
+
+      * tables have the deployment's shape; poses finite [B, 6];
+      * neighbours are valid slots, none tombstoned, at every stage;
+      * database frames sent as queries (one embed chunk of them) have
+        themselves as rank-0 neighbour in deterministic mode;
+      * results before and after compaction agree through old_to_new,
+        poses bit for bit, deterministic and stochastic;
+      * a service that loads the snapshot answers bit-identically;
+      * a uint8 batch equals the same batch as quantised floats;
+      * windowed selection (256 candidates) equals the full sort;
+      * the stream equals its batches queried one by one;
+      * a query's pose is what `make_cached_eval_step` gives on the
+        neighbours the service chose;
+      * the attention kernel is launched gnn_recursion times per batch."""
+    n_all = sizes.build + sizes.add
+    frames = synthetic_frames(dev, n_all, SEED + 10)
+    queries = synthetic_frames(dev, sizes.queries, SEED + 11)
+    rng = np.random.default_rng(SEED + 12)
+    poses = rng.normal(size=(n_all, 6)).astype(np.float32)
+    normalize = make_normalizer(MEAN, STD, dev)
+    mean_t = torch.tensor(MEAN, device=dev)
+    std_t = torch.tensor(STD, device=dev)
+
+    def model_norm(x01):
+        return (x01 - mean_t) / std_t
+
+    def service(**kw):
+        cfg = ServiceConfig(**{**dict(
+            capacity=sizes.capacity, retrieval=mode,
+            retrieval_hw=sizes.retrieval_hw, retrieval_candidates=256),
+            **kw})
+        return RelocalizationService(
+            model, netvlad if mode == "netvlad" else None, cfg)
+
+    rec = model.cfg.gnn_recursion
+    total_launches = 0
+
+    def ask(svc, q, seed=0):
+        nonlocal total_launches
+        att_core.LAUNCHES = 0
+        out = svc.query(q, model_norm, seed)
+        torch.cuda.synchronize()
+        check(att_core.LAUNCHES == rec, f"{mode}: attention kernel "
+              f"launched {att_core.LAUNCHES} times by one query batch, "
+              f"expected {rec}")
+        total_launches += att_core.LAUNCHES
+        check(tuple(out["pose"].shape) == (len(q), 6)
+              and bool(torch.isfinite(out["pose"]).all()),
+              f"{mode}: poses not finite [B, 6]")
+        nb = out["neighbors"]
+        check(tuple(nb.shape) == (len(q), 7), f"{mode}: neighbours shape")
+        check(bool(svc.db_valid[nb].all()),
+              f"{mode}: a neighbour is a padded or tombstoned slot")
+        return out
+
+    # -- build, grow --------------------------------------------------
+    det = service(deterministic=True)
+    t0 = time.perf_counter()
+    det.build(frames[:sizes.build], poses[:sizes.build], model_norm,
+              batch=sizes.embed_batch)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    width = 64 * 512 if mode == "netvlad" else model.cfg.feat_dim
+    check(tuple(det.db_desc.shape) == (sizes.capacity, width)
+          and det.db_desc.dtype == torch.float32
+          and tuple(det.db_emb.shape) == (sizes.capacity,
+                                          model.cfg.feat_dim),
+          f"{mode}: table shapes {tuple(det.db_desc.shape)}")
+    t0 = time.perf_counter()
+    det.add_frames(frames[sizes.build:], poses[sizes.build:], model_norm,
+                   batch=sizes.embed_batch)
+    torch.cuda.synchronize()
+    t_add = time.perf_counter() - t0
+    check(det.db_count == n_all and int(det.db_valid.sum()) == n_all,
+          f"{mode}: count after growth {det.db_count}")
+    mib = det.db_desc.numel() * det.db_desc.element_size() / 2 ** 20
+    phase("service", f"{mode}: built {sizes.build} frames in {t_build:.2f} "
+          f"s, added {sizes.add} in {t_add:.2f} s into capacity "
+          f"{sizes.capacity}; descriptor table "
+          f"{tuple(det.db_desc.shape)} float32 = {mib:.1f} MiB")
+
+    # -- database frames as queries: rank 0 is the frame itself -------
+    own = np.arange(sizes.build - sizes.embed_batch // 2,
+                    sizes.build + sizes.embed_batch // 2)  # old and new
+    out = ask(det, frames[own])
+    check(out["neighbors"][:, 0].cpu().tolist() == own.tolist(),
+          f"{mode}: a database frame is not its own rank-0 neighbour")
+    desc = det.db_desc[:n_all]
+    sim = desc[own] @ desc.T
+    top2 = torch.topk(sim, 2, dim=1).values
+    phase("service", f"{mode}: {len(own)} database frames (built and "
+          f"added) each retrieve themselves at rank 0; smallest gap to "
+          f"the runner-up {float((top2[:, 0] - top2[:, 1]).min()):.3e}")
+
+    # -- tombstones, compaction ---------------------------------------
+    dead = rng.choice(n_all, sizes.invalidate, replace=False)
+    det.invalidate_frames(dead)
+    sto = service(deterministic=False)
+    pre = os.path.join(tmp, f"{mode}_pre.npz")
+    det.save_database(pre)
+    sto.load_database(pre)
+    before_det = ask(det, queries)
+    before_sto = ask(sto, queries, seed=5)
+    for name, o in (("deterministic", before_det),
+                    ("stochastic", before_sto)):
+        check(not np.isin(o["neighbors"].cpu().numpy(), dead).any(),
+              f"{mode}: {name} query returned a tombstoned frame")
+    check(not torch.equal(before_sto["neighbors"],
+                          ask(sto, queries, seed=6)["neighbors"]),
+          f"{mode}: stochastic selection ignores its seed")
+    old_to_new = det.compact_database()
+    check(det.db_count == n_all - sizes.invalidate
+          and bool((old_to_new[dead] == -1).all()),
+          f"{mode}: count after compaction {det.db_count}")
+    check(np.array_equal(old_to_new, sto.compact_database()),
+          f"{mode}: two services compact the same tables differently")
+    for name, svc, before, seed in (("deterministic", det, before_det, 0),
+                                    ("stochastic", sto, before_sto, 5)):
+        after = ask(svc, queries, seed)
+        check(np.array_equal(
+            old_to_new[before["neighbors"].cpu().numpy()],
+            after["neighbors"].cpu().numpy()),
+            f"{mode}: {name} neighbours changed under compaction")
+        check(torch.equal(before["pose"], after["pose"]),
+              f"{mode}: {name} poses changed under compaction")
+    phase("service", f"{mode}: invalidated {sizes.invalidate}, compacted "
+          f"to {det.db_count} rows; {sizes.queries} uint8 queries agree "
+          "before and after through old_to_new, poses bit for bit, "
+          "deterministic and stochastic")
+
+    # -- snapshot into a new service ----------------------------------
+    path = os.path.join(tmp, f"{mode}.npz")
+    t0 = time.perf_counter()
+    det.save_database(path)
+    loaded = service(deterministic=True)
+    loaded.load_database(path)
+    t_snap = time.perf_counter() - t0
+    check(loaded.db_count == det.db_count
+          and torch.equal(loaded.db_desc, det.db_desc)
+          and torch.equal(loaded.db_emb, det.db_emb),
+          f"{mode}: loaded tables differ from the saved ones")
+    after_det = ask(det, queries)
+    check(same_result(ask(loaded, queries), after_det),
+          f"{mode}: the loaded service answers differently")
+    phase("service", f"{mode}: snapshot of "
+          f"{os.path.getsize(path) / 2 ** 20:.0f} MiB saved and loaded "
+          f"into a new service in {t_snap:.2f} s; it answers "
+          "bit-identically")
+
+    # -- input and selection identities -------------------------------
+    check(same_result(ask(det, queries.astype(np.float32) / 255.0),
+                      after_det),
+          f"{mode}: uint8 batch differs from its quantised floats")
+    full = service(deterministic=False, retrieval_candidates=None)
+    full.load_database(path)
+    check(same_result(ask(full, queries, 5), ask(sto, queries, 5)),
+          f"{mode}: windowed selection differs from the full sort")
+    batches = [queries[i * sizes.stream_batch:(i + 1) * sizes.stream_batch]
+               for i in range(sizes.stream_batches)]
+    one_by_one = [ask(sto, b, fold_in(7, i)) for i, b in enumerate(batches)]
+    att_core.LAUNCHES = 0
+    streamed = list(sto.query_stream(batches, model_norm, depth=2, rng=7))
+    check(att_core.LAUNCHES == rec * len(batches),
+          f"{mode}: stream launched the attention kernel "
+          f"{att_core.LAUNCHES} times")
+    total_launches += att_core.LAUNCHES
+    check(len(streamed) == len(batches) and all(
+        same_result(s, o) for s, o in zip(streamed, one_by_one)),
+        f"{mode}: the stream differs from one-by-one queries")
+    # the pose is the cached eval step's on the chosen neighbours
+    nb = after_det["neighbors"]
+    adj = torch.ones(len(queries), 8, 8, dtype=torch.bool, device=dev)
+    ref = serving.make_cached_eval_step(det.model)(
+        normalize(torch.from_numpy(queries)), det.db_emb[nb],
+        det.db_poses[nb], adj & ~torch.eye(8, dtype=torch.bool, device=dev))
+    check(torch.equal(ref["pred"], after_det["pose"])
+          and torch.equal(ref["nbr"], after_det["anchor"]),
+          f"{mode}: query pose differs from the cached eval step's")
+    phase("service", f"{mode}: uint8 == quantised floats; windowed (256) "
+          f"== full sort; stream of {len(batches)} x {sizes.stream_batch} "
+          "at depth 2 == one by one; pose == cached eval step on the "
+          f"chosen neighbours; attention kernel {rec} launches per batch, "
+          f"{total_launches} on this path")
+    return det, queries, total_launches
+
+
+# ---------------------------------------------------------------------------
+# time
+# ---------------------------------------------------------------------------
+
+
+def time_cached_eval(dev, model: RelPoseGNN, card: str) -> dict:
+    """Attention core and the R3 cached eval step.  Returns the core's
+    record at the main path's shape (E = 32 x batch 128, C = 256, bf16)."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     core = {}
     for e in (4096, 16384):
@@ -242,10 +751,20 @@ def time_all(dev, model: RelPoseGNN, card: str) -> dict:
             core[(e, dtype)] = (k, p)
             phase("time", f"attention_core E={e} C=256 {str(dtype)[6:]}: "
                   f"kernel {k} ms, plain {p} ms ({card})")
+    e, c = 4096, 256
+    bytes_ms = (3 * e * c * 2 + e * c * 4) / PEAK_BYTES * 1e3
+    exp_ms = e * c * c / PEAK_EXP * 1e3
+    flop_ms = 5 * e * c * c / PEAK_FP32 * 1e3
+    bound = max(bytes_ms, exp_ms, flop_ms)
+    phase("time", f"attention_core E={e} C={c} bf16 bound: bytes "
+          f"{bytes_ms} ms (3 inputs once, output once, at 3.35 TB/s), "
+          f"E*C^2 exponentials {exp_ms} ms at an estimated {PEAK_EXP:.3e} "
+          f"exp/s, 5 float32 operations per logit {flop_ms} ms at 67 "
+          f"TFLOP/s; bound {bound} ms by "
+          f"{'bytes' if bound == bytes_ms else 'operations'}")
 
     rng = np.random.default_rng(SEED + 1)
-    normalize = make_normalizer([0.485, 0.456, 0.406],
-                                [0.229, 0.224, 0.225], dev)
+    normalize = make_normalizer(MEAN, STD, dev)
     q = normalize(torch.from_numpy(rng.integers(
         0, 256, size=(BENCH_BATCH, H, W, 3), dtype=np.uint8)))
     nbr_emb = torch.randn(BENCH_BATCH, 7, model.cfg.feat_dim, device=dev,
@@ -272,7 +791,136 @@ def time_all(dev, model: RelPoseGNN, card: str) -> dict:
           f"{runs[1]}/{runs[2]} ms = {BENCH_BATCH / p_ms * 1e3} q/s; "
           f"peak memory {peak} GiB ({card})")
     return {"ms": core[(4096, torch.bfloat16)][0],
-            "plain_ms": core[(4096, torch.bfloat16)][1]}
+            "plain_ms": core[(4096, torch.bfloat16)][1],
+            "bound_ms": bound,
+            "bound_by": "bytes" if bound == bytes_ms else "operations",
+            "library_ms": None}
+
+
+def time_service(dev, svc: RelocalizationService, queries: np.ndarray,
+                 card: str) -> None:
+    """The query step at batch 128 and its stages, device time."""
+    mode = svc.cfg.retrieval
+    mean_t = torch.tensor(MEAN, device=dev)
+    std_t = torch.tensor(STD, device=dev)
+
+    def model_norm(x01):
+        return (x01 - mean_t) / std_t
+
+    q8 = torch.from_numpy(queries).to(dev)
+    q01 = q8.float() / 255.0
+    db = (svc.db_desc, svc.db_emb, svc.db_poses, svc.db_valid)
+    sto = RelocalizationService(
+        svc.model, svc.netvlad, dataclasses.replace(
+            svc.cfg, deterministic=False))
+    full = RelocalizationService(
+        svc.model, svc.netvlad, dataclasses.replace(
+            svc.cfg, deterministic=False, retrieval_candidates=None))
+    with torch.inference_mode():
+        if mode == "netvlad":
+            q_desc = svc.netvlad(svc._netvlad_input(q01))
+        else:
+            q_desc = F.normalize(svc._encode(model_norm(q01))[:, 0],
+                                 dim=-1)
+        sim = svc._similarities(q_desc, svc.db_desc)
+        nbrs = svc._select(sim, svc.db_valid, 0)
+        q_emb = svc._encode(model_norm(q01))
+        table_bf16 = svc.db_desc.to(torch.bfloat16)
+        adj = (~torch.eye(8, dtype=torch.bool, device=dev)).expand(
+            len(q8), 8, 8)
+        stages = {
+            "encode (ResNet34)": lambda: svc._encode(model_norm(q01)),
+            "rank, float32 table": lambda: svc._similarities(q_desc,
+                                                             svc.db_desc),
+            "rank, bfloat16 table": lambda: svc._similarities(q_desc,
+                                                              table_bf16),
+            "select, deterministic": lambda: svc._select(sim, svc.db_valid,
+                                                         0),
+            "select, stochastic window 256": lambda: sto._select(
+                sim, svc.db_valid, 0),
+            "select, stochastic full sort": lambda: full._select(
+                sim, svc.db_valid, 0),
+            "gather + GNN + anchor": lambda: serving.anchored_pose_step(
+                svc.model, q_emb, svc.db_emb[nbrs], svc.db_poses[nbrs],
+                adj),
+        }
+        if mode == "netvlad":
+            stages = {"retrieval trunk (resize, VGG16, NetVLAD)":
+                      lambda: svc.netvlad(svc._netvlad_input(q01)),
+                      **stages}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        steps = in_turns({
+            "deterministic": lambda: svc.query_with_db(db, q8, model_norm),
+            "stochastic": lambda: sto.query_with_db(db, q8, model_norm, 3),
+        })
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        parts = {name: cuda_median_ms(fn) for name, fn in stages.items()}
+    # request time: host upload of the uint8 batch included, host clock
+    host = []
+    for _ in range(ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.query_with_db(db, queries, model_norm)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    b = len(q8)
+    phase("time", f"service query step, {mode}, batch {b}, bf16, "
+          f"{svc.db_count} frames in capacity {svc.db_desc.shape[0]}: "
+          f"deterministic {steps['deterministic']} ms = "
+          f"{b / steps['deterministic'] * 1e3} q/s; stochastic "
+          f"{steps['stochastic']} ms = {b / steps['stochastic'] * 1e3} "
+          f"q/s; request from host uint8 {statistics.median(host)} ms "
+          f"(host clock); peak memory {peak} GiB ({card})")
+    for name, ms in parts.items():
+        phase("time", f"  {mode} stage {name}: {ms} ms")
+    profile_step(f"service query step, {mode}, stochastic, batch {b}",
+                 lambda: sto.query_with_db(db, q8, model_norm, 3),
+                 steps["stochastic"])
+
+
+def time_pair_mlp(dev, card: str) -> dict:
+    """Kernel, plain version and the two library forms at E = 1024 and
+    E = 16384 (B = 16, N = 8 and 32, every width 2048, bfloat16).
+    Returns the record at the bench entry's shape, E = 1024."""
+    record = {}
+    dt = torch.bfloat16
+    for n in (8, 32):
+        gen = torch.Generator(device=dev).manual_seed(SEED + n)
+        x, e, fc1k, fc1b, fc2k, fc2b = pair_mlp_inputs(
+            dev, gen, 16, n, 2048, 2048, 2048, 2048, "edge", dt)
+        ops = pair_mlp_operands(x, e, fc1k, fc1b, fc2k, fc2b, "edge", dt)
+        fc1w, fc2w = fc1k.T.contiguous(), fc2k.T.contiguous()
+        rows, d = ops["e"].shape[0], 2048
+        with torch.inference_mode():
+            ms = in_turns({
+                "kernel": lambda: pair_mlp.fused_pair_mlp(**ops),
+                "plain": lambda: pair_mlp.fused_pair_mlp_plain(**ops),
+                "concat": lambda: bench_pair_mlp.concat_form(
+                    x, e, fc1w, fc1b, fc2w, fc2b),
+                "split": lambda: bench_pair_mlp.split_form(
+                    x, e, fc1w, fc1b, fc2w, fc2b),
+            }, iters=ITERS if n == 8 else 8)
+        flops = 2 * rows * 2048 * (2 * d + 2048 + 2048)
+        moved = sum(t.numel() * t.element_size() for t in (
+            ops["xs"], ops["e"], fc1k, fc1b, fc2k, fc2b)) + rows * 2048 * 4
+        flop_ms = flops / PEAK_BF16 * 1e3
+        bytes_ms = moved / PEAK_BYTES * 1e3
+        bound = max(flop_ms, bytes_ms)
+        by = "operations" if bound == flop_ms else "bytes"
+        phase("time", f"fused_pair_mlp E={rows} D=De=H=Dout=2048 bf16: "
+              f"kernel {ms['kernel']} ms ({flops / ms['kernel'] / 1e9} "
+              f"TFLOP/s), plain {ms['plain']} ms, library concat "
+              f"{ms['concat']} ms, library split-weight {ms['split']} ms; "
+              f"bound {bound} ms by {by} ({flops / 1e9} GFLOP at 989 "
+              f"TFLOP/s = {flop_ms} ms; {moved / 1e6} MB at 3.35 TB/s = "
+              f"{bytes_ms} ms) ({card})")
+        if n == 8:
+            record = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                      "bound_ms": bound, "bound_by": by,
+                      "library_ms": ms["concat"],
+                      "library_split_ms": ms["split"]}
+    return record
 
 
 def main() -> int:
@@ -289,25 +937,42 @@ def main() -> int:
           f"{torch.version.cuda}; TF32 off")
     print(card, flush=True)
 
-    t0 = time.perf_counter()
-    lib = _build.build("att_core")
-    with open(f"{lib}.log") as log:
-        regs = [ln.strip() for ln in log if "registers" in ln]
-    phase("build", f"att_core.cu -> {lib.name} in "
-          f"{time.perf_counter() - t0:.2f} s; {'; '.join(regs)}")
-
-    max_err = check_kernels(dev)
+    build_kernels()
+    att_err = check_attention_kernel(dev)
+    pair_err = check_pair_mlp_kernel(dev)
+    pair_launches = run_pair_mlp_bench()
 
     model = r3_model(dev)
+    sizes = ServiceSizes()
     with tempfile.TemporaryDirectory() as tmp:
-        launches = run_slice(dev, model, tmp)
+        att_launches = {"evaluate_scene_cached": run_slice(dev, model, tmp)}
+    timed = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        netvlad = netvlad_encoder(dev)
+        for mode in ("netvlad", "shared-trunk"):
+            svc, queries, launches = exercise_service(dev, model, netvlad,
+                                                      mode, sizes, tmp)
+            att_launches[f"service {mode}"] = launches
+            timed[mode] = (svc, queries)
 
-    times = time_all(dev, model, card)
-    print(json.dumps({"kernels": [{
-        "name": "attention_core", "route": "cuda",
-        "source": "relpose_gnn_tpu_torch/csrc/att_core.cu",
-        "replaces": "relpose_gnn_tpu/ops/att_pallas.py:45",
-        "launches": launches, "max_abs_err": max_err, **times}]}))
+    att_times = time_cached_eval(dev, model, card)
+    for mode, (svc, queries) in timed.items():
+        time_service(dev, svc, queries, card)
+    pair_times = time_pair_mlp(dev, card)
+
+    print(json.dumps({"kernels": [
+        {"name": "attention_core", "route": "cuda",
+         "source": "relpose_gnn_tpu_torch/csrc/att_core.cu",
+         "replaces": "relpose_gnn_tpu/ops/att_pallas.py:45",
+         "launches": sum(att_launches.values()),
+         "launches_by_path": att_launches, "max_abs_err": att_err,
+         **att_times},
+        {"name": "fused_pair_mlp", "route": "cuda",
+         "source": "relpose_gnn_tpu_torch/csrc/pair_mlp.cu",
+         "replaces": "relpose_gnn_tpu/ops/gnn_pallas.py:57",
+         "launches": pair_launches,
+         "launches_by_path": {"bench_pair_mlp.main": pair_launches},
+         "max_abs_err": pair_err, **pair_times}]}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

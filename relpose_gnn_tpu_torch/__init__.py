@@ -1,23 +1,52 @@
 """relpose_gnn_tpu_torch — the PyTorch / CUDA port of relpose_gnn_tpu.
 
-Runs the cached relocalization serving path on one NVIDIA Hopper GPU
-(H100, sm_90a).  It mirrors the JAX package's module paths and public
-names (`relpose_gnn_tpu/models/gnn.py::DenseEdgeGNN` <->
+Runs the relocalization service (retrieval, neighbour selection, cached
+GNN step, database growth and snapshots) on one NVIDIA Hopper GPU (H100,
+sm_90a).  It mirrors the JAX package's module paths and public names
+(`relpose_gnn_tpu/models/gnn.py::DenseEdgeGNN` <->
 `relpose_gnn_tpu_torch/models/gnn.py::DenseEdgeGNN`), keeps the JAX
 layouts at public functions (images NHWC [B, H, W, 3], nodes [B, N, D],
 compact edges [B, E]) and names parameters after the reference PoseNetX_R2
-state dict, so `load_state_dict(strict=True)` takes the JAX exporter's
-output.
+and `netvlad_vgg16.tar` state dicts, so `load_state_dict(strict=True)`
+takes the JAX exporter's output.
 
-The JAX package is the reference and is never imported here; the only
-shared module is the numpy-only `relpose_gnn_tpu.data.packed`.
+The JAX package is the reference and is never imported here, not even its
+numpy-only modules: the port keeps its own copy of what it needs
+(`data/packed.py`).
+
+Entry points run on the card: `device=None` means `default_device()`,
+which raises where there is no CUDA.  `device="cpu"` is an explicit
+request, the one the CPU parity tests make.
 
 Subpackages:
-  ops         dense graph ops; the attention-core CUDA kernel and its build
-  models      ResNet trunk, BN folding, attention, GNN, RelPoseGNN, weights
-  data        input normalisation
+  ops         dense graph ops; the CUDA kernels (attention core, fused
+              pair MLP), their wrappers and their build
+  models      ResNet trunk, BN folding, attention, GNN, RelPoseGNN, VGG16,
+              NetVLAD, weight conversion
+  data        input normalisation, packed graph stores
+  retrieval   neighbour subsampling, descriptor index
   training    pose fusion (the trainer arrives with the training slice)
-  evaluation  cached-embedding serving and pose errors
+  evaluation  the relocalization service, cached serving, pose errors
+  benchmarks  the fused pair-MLP bench
 """
 
-__version__ = "0.1.0"
+import torch
+
+__version__ = "0.2.0"
+
+
+def default_device() -> torch.device:
+    """The device every entry point uses when the caller names none: the
+    current CUDA card.  Raises where there is none; nothing in the port
+    carries on on the CPU because it found no card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "relpose_gnn_tpu_torch runs on a CUDA device and "
+            "torch.cuda.is_available() is False; pass device='cpu' to ask "
+            "for the CPU explicitly")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """`device` as a torch.device; None means `default_device()`."""
+    return default_device() if device is None else torch.device(device)

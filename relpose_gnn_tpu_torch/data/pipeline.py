@@ -12,6 +12,15 @@ import numpy as np
 import torch
 
 
+def to_float01(images: torch.Tensor) -> torch.Tensor:
+    """uint8 pixels -> float32 in [0, 1] by TRUE division, bit for bit
+    what the host's `images.astype(float32) / 255` gives.  The divisor is
+    a tensor on purpose: given a Python scalar, torch's CUDA division
+    multiplies by the reciprocal instead, which rounds differently and
+    would break the uint8 == quantised-float identity of the service."""
+    return images.float() / torch.full((), 255.0, device=images.device)
+
+
 def make_normalizer(mean: np.ndarray, std: np.ndarray,
                     device: torch.device | str
                     ) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -22,9 +31,8 @@ def make_normalizer(mean: np.ndarray, std: np.ndarray,
     std_t = torch.as_tensor(np.asarray(std, np.float32), device=device)
 
     def normalize(images: torch.Tensor) -> torch.Tensor:
-        x = images.to(device=device, dtype=torch.float32)
-        if images.dtype == torch.uint8:
-            x = x / 255.0
+        x = images.to(device)
+        x = to_float01(x) if x.dtype == torch.uint8 else x.float()
         return (x - mean_t) / std_t
 
     return normalize

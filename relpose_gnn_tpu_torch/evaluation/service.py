@@ -1,0 +1,640 @@
+"""End-to-end on-device relocalization service (PyTorch).
+
+Port of `relpose_gnn_tpu/evaluation/service.py`.  One query batch goes
+
+    query image  -> retrieval descriptor              (on device)
+                 -> cosine similarities vs the DB      (one matmul)
+                 -> strided neighbor subsample
+                    (retrieval/subsample.py: deterministic, or
+                     rank -> 50% drop -> strided -> top-K)
+                 -> gather cached neighbor node embeddings + poses
+                 -> dense edge-GNN relative-pose regression
+                 -> absolute pose from the nearest-neighbor anchor
+
+State held on device: retrieval descriptors (NetVLAD [M, 32768], or the
+L2-normalised backbone embeddings under `retrieval='shared-trunk'`),
+backbone node embeddings [M, D], pose6 [M, 6] and a validity mask [M].
+
+What differs from the JAX service, and why:
+
+* Weights live in the modules (`model`, `netvlad`), not in separate
+  variable trees, and the service moves them to its `device` (None: the
+  CUDA card; it raises where there is none).
+* PyTorch runs eagerly: there is no compiled query program, so
+  `query_compiles` has no meaning and is not offered, and `capacity` is
+  about memory only: tables are allocated once and rows written in place,
+  never concatenated (the 32768-wide table is not held twice).
+* In-place row writes raise on an out-of-range index where XLA clamps it,
+  and the explicit capacity, pose-shape and tombstone-range checks stay
+  in front of them all the same.
+* The stochastic selection draws from a counter-based generator keyed by
+  an integer seed (`rng`), see retrieval/subsample.py.
+* The snapshot fingerprint hashes the model's `state_dict` keys, shapes
+  and dtypes; a snapshot written by the JAX service fails that check
+  loudly.  One without fingerprint keys loads.
+* `replicate_over` / `shard_database` arrive with the multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from collections import deque
+from typing import Callable, Iterable, Iterator
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from relpose_gnn_tpu_torch import resolve_device
+from relpose_gnn_tpu_torch.data.pipeline import to_float01
+from relpose_gnn_tpu_torch.evaluation.serving import anchored_pose_step
+from relpose_gnn_tpu_torch.models.fold_bn import fold_relpose_backbone
+from relpose_gnn_tpu_torch.models.netvlad import NetVLADEncoder
+from relpose_gnn_tpu_torch.models.posenet import RelPoseGNN
+from relpose_gnn_tpu_torch.retrieval.netvlad_index import (IMAGENET_MEAN,
+                                                           IMAGENET_STD)
+from relpose_gnn_tpu_torch.retrieval.subsample import (
+    fold_in, ranked_indices, subsample_neighbors_batch)
+
+_RANK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_MULTI_GPU = ("arrives with the multi-GPU slice (ROADMAP.md, 'Modules to "
+              "port', multi-GPU)")
+
+
+def _pipelined_stream(query_fn: Callable, batches: Iterable, depth: int,
+                      rng: int | None) -> Iterator[dict]:
+    """The pipelined-serving schedule: keep up to `depth` batches enqueued
+    on the device before the oldest result is fetched to numpy, so batch
+    i+1's upload and launches overlap batch i's compute.  Yields one numpy
+    result dict per input batch, in order; batch i draws with
+    `fold_in(rng, i)`."""
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    rng = 0 if rng is None else rng
+    inflight: deque = deque()
+
+    def fetch(out):
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    for i, q in enumerate(batches):
+        inflight.append(query_fn(q, fold_in(rng, i)))
+        if len(inflight) >= depth:
+            yield fetch(inflight.popleft())
+    while inflight:
+        yield fetch(inflight.popleft())
+
+
+def _pose_rows(poses, n: int, what: str,
+               device: torch.device) -> torch.Tensor:
+    """Validate-and-convert a pose batch riding with an n-image batch:
+    must be [n, 6] float32.  Short poses would leave valid-marked slots
+    holding stale poses; long ones would write past the batch's rows."""
+    arr = torch.as_tensor(np.asarray(poses, np.float32), device=device)
+    if tuple(arr.shape) != (n, 6):
+        raise ValueError(
+            f"{what}: poses shape {tuple(arr.shape)} does not match the "
+            f"image batch — expected ({n}, 6)")
+    return arr
+
+
+def _unit_rows(x: torch.Tensor) -> torch.Tensor:
+    """L2-normalize rows in float32 (shared-trunk retrieval descriptors:
+    the ranking key's precision does not depend on the compute dtype)."""
+    x = x.float()
+    n = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    return x / torch.clamp_min(n, 1e-12)
+
+
+def _model_fingerprint(model: torch.nn.Module) -> tuple[str, float]:
+    """(structure md5, value checksum) of a model's state dict.  The
+    structure hash (keys + shapes + dtypes) is exact; the value checksum
+    is one position-weighted sum of means, reduced on the device.
+    Snapshots carry both so that a database embedded under other weights
+    or another model config fails loudly at load."""
+    sd = model.state_dict()
+    desc = ";".join(f"{k}:{tuple(v.shape)}:{v.dtype}" for k, v in sd.items())
+    struct = hashlib.md5(desc.encode()).hexdigest()
+    s = None
+    for i, v in enumerate(sd.values()):
+        term = float((i % 13) + 1) * torch.mean(v.float())
+        s = term if s is None else s + term
+    return struct, float(s)
+
+
+def _check_fingerprint(z, model: torch.nn.Module, path: str) -> None:
+    """Validate a snapshot's model fingerprint against the live weights.
+    Snapshots without fingerprint keys skip this (their retrieval and
+    resolution guards still apply)."""
+    if "model_struct" not in z.files:
+        return
+    struct, checksum = _model_fingerprint(model)
+    if str(z["model_struct"]) != struct:
+        raise ValueError(
+            f"snapshot {path} was embedded under a model with a DIFFERENT "
+            "parameter structure than this service's (wrong backbone / "
+            "feat-dim / model config, or a snapshot of the JAX service) — "
+            "its cached embeddings are not comparable; rebuild the database")
+    if not np.isclose(float(z["model_checksum"]), checksum,
+                      rtol=1e-3, atol=1e-5):
+        raise ValueError(
+            f"snapshot {path} was embedded under different model WEIGHTS "
+            f"(checksum {float(z['model_checksum']):.6g} vs live "
+            f"{checksum:.6g}) — its cached embeddings (and shared-trunk "
+            "descriptors) would silently rank garbage; rebuild the "
+            "database with the current weights")
+
+
+def _check_built_hw(built_hw, q_shape, what: str) -> None:
+    """Query images must match the resolution the database was embedded
+    at: backbone embeddings at mixed resolutions are not comparable."""
+    if built_hw is not None and tuple(q_shape[1:3]) != tuple(built_hw):
+        raise ValueError(
+            f"{what}: query images are {tuple(q_shape[1:3])} but the "
+            f"database was embedded at {tuple(built_hw)} — backbone "
+            "embeddings at mixed resolutions are not comparable; rebuild "
+            "the database (or resize the queries)")
+
+
+def _tombstone(valid: torch.Tensor, count: int, indices) -> None:
+    """Flip validity bits off for `indices`, in place."""
+    idx_np = np.asarray(indices, np.int64).reshape(-1)
+    # a stale or typo'd index must not be a silent no-op: the bad frame
+    # would keep being served
+    if idx_np.size and (idx_np.min() < 0 or idx_np.max() >= count):
+        raise ValueError(
+            f"invalidate_frames indices out of range [0, {count}): "
+            f"{idx_np[(idx_np < 0) | (idx_np >= count)][:8]}")
+    valid[torch.as_tensor(idx_np, device=valid.device)] = False
+
+
+def _compact(desc, emb, poses, valid, count):
+    """Stable front-compaction of a (desc, emb, poses, valid, count)
+    database.  Returns the new tensors plus the int64 [M] old_to_new slot
+    map (-1 for tombstoned/padded slots).  The row gather allocates a
+    full-size destination transiently."""
+    valid_np = valid.cpu().numpy()
+    m = valid_np.shape[0]
+    n_valid = int(valid_np.sum())
+    old_to_new = np.cumsum(valid_np, dtype=np.int64) - 1
+    old_to_new[~valid_np] = -1
+    if n_valid == count and valid_np[:n_valid].all():
+        return desc, emb, poses, valid, count, old_to_new  # already compact
+    # stable: valid rows sort first, original order kept within each class
+    perm = torch.as_tensor(np.argsort(~valid_np, kind="stable"),
+                           device=valid.device)
+    new_valid = torch.as_tensor(np.arange(m) < n_valid, device=valid.device)
+    return desc[perm], emb[perm], poses[perm], new_valid, n_valid, old_to_new
+
+
+@dataclasses.dataclass
+class ServiceConfig:
+    """The JAX `ServiceConfig`, field for field with the same defaults."""
+
+    seq_len: int = 8                 # graph size (query + seq_len-1 nbrs)
+    sampling_period: int = 5         # neighbor stride
+    retrieval_hw: tuple = (192, 256)  # NetVLAD input size
+    deterministic: bool = False      # skip the stochastic 50% drop + offset
+    retrieval_candidates: int | None = 256
+    # ^ windowed neighbor selection: rank only the top-C candidates per
+    #   query instead of sorting all M (exact: the batch falls back to the
+    #   full sort on window shortfall).  None = always full sort.
+    capacity: int | None = None
+    # ^ pre-allocated database size for incremental growth (add_frames).
+    #   Padded rows are excluded from retrieval by the validity mask on
+    #   both selection branches.  None = tables sized exactly to build().
+    retrieval: str = "netvlad"
+    # ^ "netvlad": a separate VGG16+NetVLAD pass at `retrieval_hw`;
+    #   "shared-trunk": rank by cosine over the backbone node embeddings
+    #   the GNN consumes (the table is their L2-normalised float32 copy).
+    #   A semantic knob: neighbor sets change.
+    rank_dtype: str = "float32"
+    # ^ descriptor-table dtype for the similarity ranking.  "bfloat16"
+    #   halves the table and its read per batch; similarities always
+    #   accumulate in float32.  A semantic knob: near-ties can flip.
+
+
+class RelocalizationService:
+    """Device-resident database + the query path."""
+
+    def __init__(self, model: RelPoseGNN, netvlad: NetVLADEncoder | None,
+                 cfg: ServiceConfig = ServiceConfig(), fold_bn: bool = True,
+                 compact_edges: bool = True,
+                 device: torch.device | str | None = None):
+        if cfg.retrieval not in ("netvlad", "shared-trunk"):
+            raise ValueError(f"unknown retrieval mode {cfg.retrieval!r}: "
+                             "expected 'netvlad' or 'shared-trunk'")
+        if cfg.rank_dtype not in _RANK_DTYPES:
+            raise ValueError(f"unknown rank_dtype {cfg.rank_dtype!r}: "
+                             "expected 'float32' or 'bfloat16'")
+        self._rank_dt = _RANK_DTYPES[cfg.rank_dtype]
+        if cfg.retrieval == "netvlad" and netvlad is None:
+            raise ValueError("retrieval='netvlad' needs a NetVLAD encoder "
+                             "(pass netvlad, or use "
+                             "retrieval='shared-trunk')")
+        self.device = resolve_device(device)
+        if fold_bn and model.cfg.backbone.startswith("resnet") \
+                and not model.cfg.bn_folded:
+            # serving form: BN folded into the conv weights
+            _, model = fold_relpose_backbone(model)
+        if compact_edges and model.cfg.use_gnn \
+                and not model.cfg.compact_edges:
+            # compact edge-list GNN: pair/attention work on the real kNN
+            # edges only; the same parameters
+            compact = RelPoseGNN(dataclasses.replace(model.cfg,
+                                                     compact_edges=True))
+            compact.load_state_dict(model.state_dict(), strict=True)
+            model = compact
+        self.model = model.to(self.device).eval()
+        self.netvlad = (None if netvlad is None
+                        else netvlad.to(self.device).eval())
+        self.cfg = cfg
+        self.db_desc = None   # [M, 32768]
+        self.db_emb = None    # [M, D]
+        self.db_poses = None  # [M, 6]
+        self.db_valid = None  # [M] bool (False = padded/empty slot)
+        self.db_count = 0     # rows in use (== M when capacity is None)
+        self._model_norm = None  # the normalization build() embedded with
+        self._built_hw = None    # (H, W) the database was embedded at
+        self._nv_mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
+        self._nv_std = torch.as_tensor(IMAGENET_STD, device=self.device)
+
+    # -- database construction ----------------------------------------
+
+    def _require_built(self) -> None:
+        if self.db_desc is None:
+            raise RuntimeError("the database is empty: call build() or "
+                               "load_database() first")
+
+    def _netvlad_input(self, images01: torch.Tensor) -> torch.Tensor:
+        """raw [B, H, W, 3] in [0,1] -> NetVLAD input: antialiased,
+        half-pixel-centred bilinear resize to `retrieval_hw` on the device
+        (the counterpart of `jax.image.resize(..., "bilinear")`; the
+        drift between the two is measured in tests/test_torch_service.py),
+        then ImageNet normalization."""
+        x = F.interpolate(images01.permute(0, 3, 1, 2),
+                          size=tuple(self.cfg.retrieval_hw), mode="bilinear",
+                          antialias=True, align_corners=False)
+        return (x.permute(0, 2, 3, 1) - self._nv_mean) / self._nv_std
+
+    def _to_device01(self, images) -> torch.Tensor:
+        """Host (or device) images, uint8 or float in [0, 1] -> float32
+        on the device.  uint8 rides the thin transfer and is divided by
+        255 there (true division, see `to_float01`), so a uint8 batch
+        gives bit for bit what the same batch sent as
+        `q.astype(float32) / 255` gives (tested)."""
+        q = torch.as_tensor(images).to(self.device)
+        return to_float01(q) if q.dtype == torch.uint8 else q.float()
+
+    @torch.inference_mode()
+    def _embed(self, chunk01: torch.Tensor, model_norm
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(descriptor rows in rank_dtype, embedding rows) of a chunk."""
+        emb = self.model.encode_nodes(model_norm(chunk01)[:, None])[:, 0]
+        if self.cfg.retrieval == "shared-trunk":
+            desc = _unit_rows(emb)
+        else:
+            desc = self.netvlad(self._netvlad_input(chunk01))
+        # the TABLE rounds to rank_dtype once here; queries cast at the
+        # matmul and similarities accumulate in float32
+        return desc.to(self._rank_dt), emb
+
+    def _write_rows(self, images01, model_norm, batch: int,
+                    start: int) -> None:
+        """Embed `images01` in chunks and write them into table rows
+        [start, start + len), in place.  Allocates the tables at the first
+        chunk when there are none."""
+        for i in range(0, len(images01), batch):
+            d, e = self._embed(self._to_device01(images01[i:i + batch]),
+                               model_norm)
+            if self.db_desc is None:
+                m = self.db_poses.shape[0]
+                self.db_desc = torch.zeros((m, d.shape[1]), dtype=d.dtype,
+                                           device=self.device)
+                self.db_emb = torch.zeros((m, e.shape[1]), dtype=e.dtype,
+                                          device=self.device)
+            self.db_desc[start + i:start + i + len(d)] = d
+            self.db_emb[start + i:start + i + len(e)] = e
+
+    def build(self, db_images01: np.ndarray, db_poses: np.ndarray,
+              model_norm, batch: int = 16) -> None:
+        """Embed every database frame: retrieval descriptor + backbone
+        node embedding.  `model_norm(images01) -> model input` applies the
+        scene normalization used at graph-build time (a callable on torch
+        tensors).  Accepts float in [0, 1] or uint8 (converted on the
+        device per chunk, same contract as query())."""
+        m = len(db_images01)
+        poses = _pose_rows(db_poses, m, "build", self.device)
+        rows = m
+        if self.cfg.capacity is not None:
+            rows = int(self.cfg.capacity)
+            if m > rows:
+                raise ValueError(f"database has {m} frames > capacity {rows}")
+        self._built_hw = tuple(np.shape(db_images01)[1:3])
+        self._model_norm = model_norm
+        self.db_desc = self.db_emb = None
+        self.db_poses = torch.zeros((rows, 6), dtype=torch.float32,
+                                    device=self.device)
+        self.db_poses[:m] = poses
+        self._write_rows(db_images01, model_norm, batch, 0)
+        # rows count as valid only once all of them are embedded
+        self.db_valid = torch.arange(rows, device=self.device) < m
+        self.db_count = m
+
+    def add_frames(self, images01: np.ndarray, poses: np.ndarray,
+                   model_norm, batch: int = 16) -> None:
+        """Grow the database in place: embed `images01` and write them
+        into the next free capacity slots.  Requires
+        `ServiceConfig.capacity`.  `model_norm` must be the same scene
+        normalization build() used."""
+        if self.cfg.capacity is None:
+            raise ValueError(
+                "add_frames requires ServiceConfig.capacity (build() sized "
+                "the device tables exactly; there is no free slot to grow "
+                "into)")
+        self._require_built()
+        if self._model_norm is None:
+            # database restored via load_database: adopt this call's
+            self._model_norm = model_norm
+        elif model_norm is not self._model_norm:
+            # embedding new frames under a DIFFERENT normalization would
+            # silently mix incompatible embeddings
+            raise ValueError(
+                "add_frames must be called with the same model_norm "
+                "function object build() used (a different normalization "
+                "requires rebuilding the whole database)")
+        _check_built_hw(self._built_hw, np.shape(images01), "add_frames")
+        n_new = len(images01)
+        cap = int(self.cfg.capacity)
+        if self.db_count + n_new > cap:
+            raise ValueError(
+                f"capacity exceeded: {self.db_count} + {n_new} > {cap}")
+        pose_rows = _pose_rows(poses, n_new, "add_frames", self.device)
+        self._write_rows(images01, model_norm, batch, self.db_count)
+        self.db_poses[self.db_count:self.db_count + n_new] = pose_rows
+        self.db_valid[self.db_count:self.db_count + n_new] = True
+        self.db_count += n_new
+
+    def invalidate_frames(self, indices) -> None:
+        """Tombstone database frames: flips their validity bits so they
+        are never retrieved again.  Slots are not reclaimed here:
+        add_frames keeps appending to fresh capacity until
+        compact_database() reclaims the tombstones."""
+        self._require_built()
+        _tombstone(self.db_valid, self.db_count, indices)
+
+    def compact_database(self) -> np.ndarray:
+        """Reclaim tombstoned slots: permute the valid rows to the front
+        (stable: survivors keep their relative order) and reset `db_count`
+        to the valid total.
+
+        Returns `old_to_new`, an int64 [M] map from pre-compaction slot
+        index to post-compaction index (-1 for tombstoned/padded slots);
+        externally held frame indices must be remapped through it.
+
+        Query results are preserved exactly: invalid entries are masked
+        out of the ranking key on both selection branches, survivors keep
+        their relative order, and drop draws are keyed by rank position,
+        so both modes return the same frames (slot indices renumbered
+        through `old_to_new`) and identical poses."""
+        self._require_built()
+        (self.db_desc, self.db_emb, self.db_poses, self.db_valid,
+         self.db_count, old_to_new) = _compact(
+            self.db_desc, self.db_emb, self.db_poses, self.db_valid,
+            self.db_count)
+        return old_to_new
+
+    # -- database persistence ------------------------------------------
+
+    def save_database(self, path: str) -> None:
+        """Persist the built database (descriptors, embeddings, poses,
+        validity, count) so a serving restart skips re-embedding the
+        scene.  Same `.npz` keys as the JAX service.  bfloat16 tables are
+        widened to float32 on disk (npz has no bf16; widening is exact)
+        and cast back on load: the round trip is bit-exact."""
+        self._require_built()
+
+        def host(x):
+            return (x.float() if x.dtype == torch.bfloat16 else x
+                    ).cpu().numpy()
+
+        def name(dt):
+            return str(dt).removeprefix("torch.")
+
+        # bind the snapshot to the weights + input resolution that
+        # embedded it
+        struct, checksum = _model_fingerprint(self.model)
+        np.savez(path, desc=host(self.db_desc), emb=host(self.db_emb),
+                 poses=host(self.db_poses), valid=host(self.db_valid),
+                 count=np.int64(self.db_count),
+                 desc_dtype=name(self.db_desc.dtype),
+                 emb_dtype=name(self.db_emb.dtype),
+                 retrieval_hw=np.asarray(self.cfg.retrieval_hw, np.int64),
+                 retrieval=np.asarray(self.cfg.retrieval),
+                 model_struct=np.asarray(struct),
+                 model_checksum=np.float64(checksum),
+                 built_hw=np.asarray(self._built_hw or (0, 0), np.int64))
+
+    def load_database(self, path: str) -> None:
+        """Restore a save_database() snapshot onto the device.  The
+        service's config must match the one that built it.  add_frames
+        works after a load (it adopts its call's model_norm)."""
+        z = np.load(path)
+        if "scenes" in z.files:
+            raise ValueError(
+                f"{path} is a MultiSceneService snapshot (has a 'scenes' "
+                "key) — load it through MultiSceneService.load_database, "
+                "not the single-scene RelocalizationService")
+        if "desc" not in z.files:
+            raise ValueError(
+                f"{path} is not a RelocalizationService snapshot (keys: "
+                f"{sorted(z.files)[:8]})")
+        m = z["desc"].shape[0]
+        want = self.cfg.capacity if self.cfg.capacity is not None else m
+        if m != want:
+            raise ValueError(
+                f"snapshot rows ({m}) do not match this service's "
+                f"capacity ({want}); it was saved under a different "
+                "ServiceConfig")
+        # descriptors are a function of the retrieval MODE and (for
+        # netvlad) the input size; snapshots without a 'retrieval' key
+        # were all NetVLAD-built
+        snap_mode = (str(z["retrieval"]) if "retrieval" in z.files
+                     else "netvlad")
+        if snap_mode != self.cfg.retrieval:
+            raise ValueError(
+                f"snapshot was built with retrieval={snap_mode!r} but this "
+                f"service is configured for {self.cfg.retrieval!r}; "
+                "descriptors from different retrieval modes are not "
+                "comparable — rebuild the database (or match the config)")
+        snap_hw = tuple(int(v) for v in z["retrieval_hw"])
+        if snap_mode == "netvlad" and snap_hw != tuple(self.cfg.retrieval_hw):
+            raise ValueError(
+                f"snapshot was built with retrieval_hw={snap_hw} but this "
+                f"service embeds queries at {tuple(self.cfg.retrieval_hw)}; "
+                "mixed-resolution descriptors are not comparable — rebuild "
+                "the database (or match the config)")
+        _check_fingerprint(z, self.model, path)
+        emb_dt = _RANK_DTYPES.get(str(z["emb_dtype"]))
+        if emb_dt is None:
+            raise ValueError(f"snapshot emb_dtype {z['emb_dtype']!r} is "
+                             "neither float32 nor bfloat16")
+        # cast to THIS service's rank_dtype, not the snapshot's: bf16->f32
+        # widening is exact, and f32->bf16 equals what a fresh bf16 build
+        # would store (embed rounds the same f32 descriptor once)
+        dev = self.device
+        self.db_desc = torch.as_tensor(z["desc"], device=dev).to(
+            self._rank_dt)
+        self.db_emb = torch.as_tensor(z["emb"], device=dev).to(emb_dt)
+        self.db_poses = torch.as_tensor(z["poses"], device=dev)
+        self.db_valid = torch.as_tensor(z["valid"], device=dev)
+        self.db_count = int(z["count"])
+        self._model_norm = None
+        if "built_hw" in z.files and int(z["built_hw"][0]) > 0:
+            self._built_hw = tuple(int(v) for v in z["built_hw"])
+
+    # -- multi-GPU forms -------------------------------------------------
+
+    def replicate_over(self, mesh) -> None:
+        raise NotImplementedError(f"replicate_over {_MULTI_GPU}")
+
+    def shard_database(self, mesh, axis: str | None = None) -> None:
+        raise NotImplementedError(f"shard_database {_MULTI_GPU}")
+
+    # -- the query path, stage by stage ----------------------------------
+
+    def _encode(self, query_model_in: torch.Tensor) -> torch.Tensor:
+        """Query backbone embeddings [B, 1, D]."""
+        return self.model.encode_nodes(query_model_in[:, None])
+
+    def _similarities(self, q_desc: torch.Tensor,
+                      db_desc: torch.Tensor) -> torch.Tensor:
+        """[B, Dv] x [M, Dv] -> float32 [B, M].  The table is in
+        rank_dtype and the query is cast to it; products accumulate in
+        float32 and come out in float32 (a bfloat16 GEMM that rounded its
+        output to bfloat16 would erase the ranking).  On the card that is
+        `mm(..., out_dtype=float32)`, which reads the table as it is
+        stored; the CPU has no such GEMM, so there both operands are
+        widened first, which gives the same products and sums."""
+        q = q_desc.to(db_desc.dtype)
+        if db_desc.dtype == torch.float32:
+            return q @ db_desc.T
+        if db_desc.device.type == "cuda":
+            return torch.mm(q, db_desc.T, out_dtype=torch.float32)
+        return q.float() @ db_desc.float().T
+
+    def _select(self, sim: torch.Tensor, db_valid: torch.Tensor,
+                rng: int) -> torch.Tensor:
+        """Neighbor selection [B, K] (db_valid masks padding and
+        tombstones on both branches)."""
+        cfg = self.cfg
+        k = cfg.seq_len - 1
+        if not cfg.deterministic:
+            return subsample_neighbors_batch(
+                rng, sim, ~db_valid, k, cfg.sampling_period,
+                candidates=cfg.retrieval_candidates)
+        # plain strided top-k: every sampling_period-th of the ranked
+        # list.  Only ranks 0..(k-1)*sp are consumed, so rank that window.
+        # Ranks clamp to the last VALID entry: with fewer valid frames
+        # than the strided window, masked padding would otherwise be
+        # selected.
+        m = sim.shape[1]
+        neg_inf = torch.full_like(sim, float("-inf"))
+        sim_m = torch.where(db_valid[None, :], sim, neg_inf)
+        c = min((k - 1) * cfg.sampling_period + 1, m)
+        order_c = ranked_indices(-sim_m, c)
+        n_valid = torch.sum(db_valid.to(torch.int64))
+        ranks = torch.arange(k, dtype=torch.int64,
+                             device=sim.device) * cfg.sampling_period
+        ranks = torch.minimum(ranks, torch.clamp_min(n_valid - 1, 0))
+        ranks = torch.clamp_max(ranks, c - 1)   # tiny-DB guard (m < c)
+        return order_c[:, ranks]
+
+    @torch.inference_mode()
+    def _query_fn(self, model_norm, db: tuple, query01: torch.Tensor,
+                  rng: int, norm_ms) -> dict:
+        cfg = self.cfg
+        db_desc, db_emb, db_poses, db_valid = db
+        # norm_ms=(mean, std) passes the scene normalization as runtime
+        # tensors, applied as (x - mean) * (1/std): the form the JAX
+        # service defines for it (its compiler turns the division of a
+        # model_norm closure into that product).  model_norm is applied
+        # as written.
+        if norm_ms is None:
+            query_model_in = model_norm(query01)
+        else:
+            mean, std = (torch.as_tensor(a, dtype=torch.float32,
+                                         device=self.device)
+                         for a in norm_ms)
+            query_model_in = (query01 - mean) * (1.0 / std)
+        b = query01.shape[0]
+        # 1. retrieval descriptor + similarities (one matmul).
+        # shared-trunk reuses the query's backbone embedding as its
+        # descriptor
+        if cfg.retrieval == "shared-trunk":
+            q_emb = self._encode(query_model_in)
+            q_desc = _unit_rows(q_emb[:, 0])
+        else:
+            q_emb = None
+            q_desc = self.netvlad(self._netvlad_input(query01))
+        sim = self._similarities(q_desc, db_desc)
+        # 2. neighbor selection
+        nbrs = self._select(sim, db_valid, rng)
+        # 3. graph assembly from cached embeddings, 4. GNN + pose recovery
+        if q_emb is None:
+            q_emb = self._encode(query_model_in)
+        adj = torch.as_tensor(~np.eye(cfg.seq_len, dtype=bool),
+                              device=self.device).expand(
+            b, cfg.seq_len, cfg.seq_len)
+        out = anchored_pose_step(self.model, q_emb, db_emb[nbrs],
+                                 db_poses[nbrs], adj)
+        return {"pose": out["pred"], "neighbors": nbrs,
+                "anchor": out["nbr"]}
+
+    def query(self, query_images01: np.ndarray, model_norm,
+              rng: int | None = None, norm_ms=None) -> dict:
+        """Relocalize a batch of raw [B, H, W, 3] images.
+
+        Accepts float in [0, 1], or uint8 (a 4x thinner transfer,
+        converted on the device; bit-identical to the same values sent as
+        quantised floats).  `rng` is the integer seed of the stochastic
+        selection (ignored in deterministic mode; None = 0).
+
+        `norm_ms=(mean, std)` passes the scene normalization as arrays
+        instead of the `model_norm` callable (then pass None for it):
+        applied as `(x - mean) * (1/std)`.
+
+        Returns {'pose' [B, 6] pose6, 'neighbors' [B, K], 'anchor' [B]}
+        as tensors on the service's device."""
+        self._require_built()
+        return self.query_with_db(
+            (self.db_desc, self.db_emb, self.db_poses, self.db_valid),
+            query_images01, model_norm, rng, norm_ms)
+
+    def query_with_db(self, db: tuple, query_images01, model_norm,
+                      rng: int | None = None, norm_ms=None) -> dict:
+        """Run the query path against EXPLICIT database tensors
+        `db = (desc [M, Dv], emb [M, D], poses [M, 6], valid [M])` instead
+        of this service's own (the hook a multi-scene service uses).  Same
+        contract as `query` otherwise."""
+        _check_built_hw(self._built_hw, np.shape(query_images01), "query")
+        return self._query_fn(None if norm_ms is not None else model_norm,
+                              db, self._to_device01(query_images01),
+                              0 if rng is None else int(rng), norm_ms)
+
+    def query_stream(self, batches, model_norm, depth: int = 2,
+                     rng: int | None = None, norm_ms=None):
+        """Pipelined serving: relocalize a stream of query batches.
+
+        Keeps up to `depth` batches enqueued before the oldest result is
+        fetched, so batch i+1's host->device upload and launches overlap
+        batch i's compute.  Yields one result dict per input batch, in
+        order, as numpy arrays.  In stochastic windowed mode each batch
+        still reads one boolean back (the window check), which bounds the
+        overlap.
+
+        `batches` is any iterable of [B, H, W, 3] arrays (uint8 or float
+        in [0, 1]); B may vary."""
+        return _pipelined_stream(
+            lambda q, r: self.query(q, model_norm, r, norm_ms=norm_ms),
+            batches, depth, rng)

@@ -10,7 +10,14 @@ Port of `relpose_gnn_tpu/evaluation/serving.py` (single device; the JAX
      and recovers the absolute pose from the nearest neighbour's:
      `pred = anchor - pred_rel[nbr, query]`.
 
-Everything runs under `torch.inference_mode()`.
+Everything runs under `torch.inference_mode()`.  `embed_database` and
+`evaluate_scene_cached` run on `device`: None means the CUDA card (they
+raise where there is none) and the model is moved there; `"cpu"` is an
+explicit request.
+
+`anchored_pose_step` is the part the relocalization service
+(evaluation/service.py) shares with the cached eval step: the graph from
+[query | neighbour] embeddings, the GNN, the anchor and `anchor - pred_rel`.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from relpose_gnn_tpu_torch import resolve_device
 from relpose_gnn_tpu_torch.data.pipeline import make_normalizer
 from relpose_gnn_tpu_torch.models.posenet import RelPoseGNN
 from relpose_gnn_tpu_torch.ops import graph as graph_ops
@@ -27,10 +35,6 @@ from relpose_gnn_tpu_torch.training.trainer import (check_fuse_ok,
                                                     fuse_pose_estimates)
 
 _FUSES = ("first", "mean", "median")
-
-
-def _model_device(model: RelPoseGNN) -> torch.device:
-    return next(model.parameters()).device
 
 
 def make_embed_fn(model: RelPoseGNN
@@ -48,12 +52,40 @@ def embed_database(model: RelPoseGNN, images: np.ndarray,
                    batch_size: int = 32,
                    device: torch.device | str | None = None) -> torch.Tensor:
     """Embed database frames (already normalised) in chunks of
-    `batch_size` -> [M, feat] on `device` (default: the model's)."""
-    device = device or _model_device(model)
-    embed = make_embed_fn(model)
+    `batch_size` -> [M, feat] on `device` (None: the CUDA card); the model
+    is moved there."""
+    device = resolve_device(device)
+    embed = make_embed_fn(model.to(device))
     out = [embed(torch.as_tensor(images[i:i + batch_size], device=device))
            for i in range(0, len(images), batch_size)]
     return torch.cat(out)
+
+
+def anchored_pose_step(model: RelPoseGNN, q_emb: torch.Tensor,
+                       nbr_emb: torch.Tensor, nbr_poses: torch.Tensor,
+                       adj: torch.Tensor,
+                       static_anchor: int | None = None) -> dict:
+    """Stages 3-4 of a relocalization query, given embeddings.
+
+    q_emb [B, 1, feat] (the encoded queries), nbr_emb [B, N-1, feat] and
+    nbr_poses [B, N-1, 6] (their database neighbours), adj [B, N, N].
+    Builds the graph [query | neighbours], runs the GNN and heads, picks
+    the anchor node `nbr` (`static_anchor` if given, else the query's
+    nearest neighbour in pre-GNN feature space) and recovers
+    `pred = nbr_poses[nbr - 1] - pred_rel[nbr, query]`.
+    Returns {pred [B, 6], nbr [B], pred_rel [B, N, N, 6], adj_eff}."""
+    x = torch.cat([q_emb, nbr_emb.to(q_emb.dtype)], dim=1)
+    _, pred_rel, adj_eff, aux = model.from_embeddings(x, adj)
+    b = pred_rel.shape[0]
+    rows = torch.arange(b, device=pred_rel.device)
+    if static_anchor is not None:
+        nbr = torch.full((b,), static_anchor, dtype=torch.int64,
+                         device=pred_rel.device)
+    else:
+        nbr = graph_ops.nearest_neighbor(aux["node_feats"], node=0)
+    anchor = nbr_poses[rows, nbr - 1]        # node j <-> nbr_poses[j-1]
+    return {"pred": anchor - pred_rel[rows, nbr, 0], "nbr": nbr,
+            "pred_rel": pred_rel, "adj_eff": adj_eff}
 
 
 def make_cached_eval_step(model: RelPoseGNN, ref_node: int = 0,
@@ -81,20 +113,11 @@ def make_cached_eval_step(model: RelPoseGNN, ref_node: int = 0,
     def eval_step(query_imgs: torch.Tensor, nbr_emb: torch.Tensor,
                   nbr_poses: torch.Tensor, adj: torch.Tensor) -> dict:
         q_emb = model.encode_nodes(query_imgs[:, None])      # [B, 1, feat]
-        x = torch.cat([q_emb, nbr_emb.to(q_emb.dtype)], dim=1)
-        _, pred_rel, adj_eff, aux = model.from_embeddings(x, adj)
-        b = pred_rel.shape[0]
-        rows = torch.arange(b, device=pred_rel.device)
-        if static_anchor is not None:
-            nbr = torch.full((b,), static_anchor, dtype=torch.int64,
-                             device=pred_rel.device)
-        else:
-            nbr = graph_ops.nearest_neighbor(aux["node_feats"],
-                                             node=ref_node)
+        out = anchored_pose_step(model, q_emb, nbr_emb, nbr_poses, adj,
+                                 static_anchor)
+        nbr, pred_rel, adj_eff = out["nbr"], out["pred_rel"], out["adj_eff"]
         if fuse == "first":
-            anchor = nbr_poses[rows, nbr - 1]    # node j <-> nbr_poses[j-1]
-            return {"pred": anchor - pred_rel[rows, nbr, ref_node],
-                    "nbr": nbr}
+            return {"pred": out["pred"], "nbr": nbr}
         # the query's own row is a zero placeholder; it is never read since
         # the adjacency has no self edge (mask[:, ref_node] is False)
         poses_full = torch.cat([torch.zeros_like(nbr_poses[:, :1]),
@@ -114,18 +137,19 @@ def evaluate_scene_cached(model: RelPoseGNN, packed_ds,
                           fuse: str = "first",
                           device: torch.device | str | None = None) -> dict:
     """Cached-serving evaluation over a packed store that carries `nbr_idx`
-    (relpose_gnn_tpu.data.packed.PackedGraphDataset).
+    (data/packed.py::PackedGraphDataset).
 
     `database_images` ([M, H, W, 3], uint8 or raw [0, 1] floats) are
     normalised with the store's stats and embedded once, in chunks of
     `embed_batch`; then each batch of `batch_size` graphs encodes its query
     images and gathers its neighbours' embeddings.  Returns {pred [L, 6],
-    target [L, 6]} as numpy pose6 arrays.  `device` defaults to the
-    model's."""
+    target [L, 6]} as numpy pose6 arrays.  Runs on `device` (None: the
+    CUDA card); the model is moved there."""
     if packed_ds.nbr_idx is None:
         raise ValueError("the packed store has no nbr_idx.npy; rebuild it "
                          "with neighbour indices for cached serving")
-    device = torch.device(device or _model_device(model))
+    device = resolve_device(device)
+    model = model.to(device)
     normalize = make_normalizer(packed_ds.mean, packed_ds.std, device)
 
     embed = make_embed_fn(model)

@@ -3,7 +3,9 @@
 `state_dict_from_jax` takes the JAX RelPoseGNN's variables as nested dicts
 of numpy arrays (what `jax.device_get` returns) and gives exactly the keys
 and values of `relpose_gnn_tpu/models/convert.py::export_relpose_gnn`, as
-torch tensors.  It is written without jax so the port never imports it.
+torch tensors.  `netvlad_state_dict_from_jax` does the same for the
+NetVLAD retrieval encoder, with the released `netvlad_vgg16.tar` key names.
+Both are written without jax so the port never imports it.
 
 Layout rules (inverse of the JAX converter):
   conv   flax kernel [kH, kW, I, O]  ->  torch [O, I, kH, kW]
@@ -105,4 +107,30 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
     if "att" in params:
         for k in ("g", "theta", "phi", "W"):
             _linear(out, f"att.{k}", params["att"][k])
+    return out
+
+
+# torchvision vgg16.features conv layer indices (cfg D)
+_VGG16_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def netvlad_state_dict_from_jax(params: Mapping) -> dict:
+    """JAX NetVLADEncoder params -> torch state dict with the released
+    `netvlad_vgg16.tar` key names (`encoder.{0,2,5,...,28}.weight/bias`,
+    `pool.centroids`, `pool.conv.weight`, and `pool.conv.bias` for a
+    vladv2 pool): the inverse of the JAX package's `convert_netvlad`."""
+    extra = sorted(set(params) - {"encoder", "pool"})
+    if extra:
+        raise ValueError(f"no netvlad_vgg16.tar counterpart for parameter "
+                         f"subtrees {extra}")
+    out = {}
+    for j, torch_idx in enumerate(_VGG16_CONV_IDX):
+        p = params["encoder"][f"conv{j}"]
+        out[f"encoder.{torch_idx}.weight"] = _conv(p["kernel"])
+        out[f"encoder.{torch_idx}.bias"] = _f32(p["bias"])
+    pool = params["pool"]
+    out["pool.centroids"] = _f32(pool["centroids"])
+    out["pool.conv.weight"] = _conv(pool["assign_conv"]["kernel"])
+    if "bias" in pool["assign_conv"]:
+        out["pool.conv.bias"] = _f32(pool["assign_conv"]["bias"])
     return out

@@ -19,13 +19,14 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from relpose_gnn_tpu.data.packed import PackedGraphDataset, PackedGraphWriter
 from relpose_gnn_tpu.data.pipeline import make_normalizer as jax_normalizer
 from relpose_gnn_tpu.evaluation import evaluator as jax_evaluator
 from relpose_gnn_tpu.evaluation import serving as jax_serving
 from relpose_gnn_tpu.models.posenet import RelPoseGNN as JaxRelPoseGNN
 from relpose_gnn_tpu.models.posenet import RelPoseGNNConfig as JaxConfig
 from relpose_gnn_tpu.training import trainer as jax_trainer
+from relpose_gnn_tpu_torch.data.packed import (PackedGraphDataset,
+                                               PackedGraphWriter)
 from relpose_gnn_tpu_torch.data.pipeline import make_normalizer
 from relpose_gnn_tpu_torch.evaluation import serving
 from relpose_gnn_tpu_torch.evaluation.evaluator import compute_pose_errors
@@ -139,7 +140,7 @@ def test_embed_database_matches_jax(weights):
     jmodel, tmodel = _models(variables)
     imgs = np.concatenate([q, q[::-1]])
     want = jax_serving.embed_database(jmodel, variables, imgs, batch_size=4)
-    got = serving.embed_database(tmodel, imgs, batch_size=4)
+    got = serving.embed_database(tmodel, imgs, batch_size=4, device="cpu")
     assert got.shape == (2 * B, D)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=PRED_ATOL)
 
@@ -203,19 +204,42 @@ def _run(code_or_args, env=None, timeout=120):
 
 
 def test_port_and_chip_smoke_never_import_jax():
+    """After importing every module of the port and `chip_smoke`, no
+    module of jax, flax or the JAX package is loaded (the `_torch`
+    package's own name starts like the JAX package's and is excepted)."""
     proc = _run(["-c", (
-        "import sys\n"
-        "import relpose_gnn_tpu_torch.evaluation.serving\n"
-        "import relpose_gnn_tpu_torch.models.posenet\n"
-        "import relpose_gnn_tpu_torch.models.fold_bn\n"
-        "import relpose_gnn_tpu_torch.models.convert\n"
+        "import importlib, pkgutil, sys\n"
+        "import relpose_gnn_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    pkg.__path__, pkg.__name__ + '.')]\n"
+        "assert len(names) >= 25, names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m == 'jax' or m.startswith(('jax.', 'flax')))\n"
+        "def foreign(m):\n"
+        "    top = m.split('.')[0]\n"
+        "    return top in ('jax', 'jaxlib', 'flax', 'relpose_gnn_tpu')\n"
+        "bad = sorted(m for m in sys.modules if foreign(m))\n"
         "assert not bad, bad\n"
+        "assert 'relpose_gnn_tpu_torch.evaluation.service' in sys.modules\n"
         "print('clean')\n")])
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
+
+
+def test_entry_points_refuse_to_run_without_a_card(weights, tmp_path):
+    """`device=None` means the CUDA card: where there is none the entry
+    points raise instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    _, tmodel = _models(weights[0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.embed_database(tmodel, np.zeros((1, H, W, 3), np.float32))
+    _write_store(str(tmp_path / "s"), np.random.default_rng(0), 2, 4)
+    ds = PackedGraphDataset(str(tmp_path / "s"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.evaluate_scene_cached(
+            tmodel, ds, np.zeros((4, H, W, 3), np.uint8))
 
 
 def test_chip_smoke_fails_without_cuda():
