@@ -16,10 +16,26 @@ is no CPU fallback: without CUDA it exits 1 at once.
             tests/test_pallas_gnn.py in float32 (rtol 1e-4, atol 1e-3, as
             the JAX tests hold the TPU kernel) and in bfloat16, and at
             E = 1024 with every width 2048 in bfloat16, 'edge' and 'msg'
-            (bfloat16: see PAIR_BF16_TOL)
+            (bfloat16: see PAIR_BF16_TOL); every attention-variant form
+            (`ops/att_variants.py`: v1_exp2, v2_mxu, v3_exp2_mxu, base,
+            v1, v2, exp2_core) against its own plain version and against
+            the production kernel at E = 72 with C = 40 and 130, E = 64
+            and 4096 with C = 256, float32 and bfloat16 inputs (see
+            VARIANT_REL_TOL), and `v1 == base` bit for bit
   pair_mlp  the bench entry `benchmarks/bench_pair_mlp.py::main` at
             B = 16, N = 8, dims 2048, in process; the pair-MLP kernel's
             launches counted
+  bench     the attention bench entries through their `main`, in process,
+            at the JAX benches' shapes (C = 256, float32):
+            `bench_att_core` (E = 16384), `bench_att_variants`
+            (E = 32768), `bench_att_variants2` (E = 16384, with its
+            exactness check) and `bench_att_exp2` (E = 16384); every
+            launch count set to 0 before and read after each.  Later, in
+            the same phase name, `bench_service` (synthetic tables, 2048
+            frames, both legs), `bench_service_bisect` and
+            `bench_retrieval_stages` (batch 128, 2048 rows: every stage
+            time positive, every share of the peak under 1) and
+            `bench_eval`; `mfu` must read under 1
   slice     R3 (ResNet34, dims 2048, kNN-4 compact edges, BN folded),
             seeded random weights, bfloat16: `evaluate_scene_cached` over
             a synthetic packed store of 48 query graphs at 256x341 with 64
@@ -35,25 +51,43 @@ is no CPU fallback: without CUDA it exits 1 at once.
             invalidate 64, compact, save, load into a new service; 128
             uint8 queries, deterministic and stochastic; a stream of 4
             batches of 32.  Checks are listed at `exercise_service`.
+  multiscene  one model serving three scenes with their own (mean, std):
+            `MultiSceneService`, R3 + VGG16/NetVLAD at full width, 1024
+            frames a scene in capacity 2048 (3 x 256 MiB of descriptor
+            tables), batch 128 stochastic queries; each scene against a
+            single-scene service on the same frames with `norm_ms`; add,
+            invalidate, compact, save, load; a stream.  Checks are listed
+            at `exercise_multiscene`.
   time      CUDA events, median of 20 iterations after warm-up, the forms
-            compared in turns within this one run: the attention core and
+            compared in turns within this one run: the attention core
+            (kernel, plain version, and the one library call that computes
+            it, `scaled_dot_product_attention` over one-wide heads) and
             the R3 cached eval step at batch 128 (kernel vs plain core);
-            the service's query step at batch 128 in both retrieval modes
-            with its stages and a `torch.profiler` window (busy and idle
-            share, kernels by time); the pair MLP (kernel, plain, the
-            concat and split-weight library forms) at E = 1024 and 16384
+            every attention-variant kernel at its bench entry's shape and
+            inputs against its plain version (VARIANT_REL_TOL, and
+            `v1 == base` bit for bit), with the plain version and the
+            library call in turns (median of 5) and the bound, the
+            kernel's own time being its bench entry's; the multi-scene
+            query step, scenes in turns; the service's query step at
+            batch 128 in both retrieval modes with its stages and a
+            `torch.profiler` window (busy and idle share, kernels by
+            time); the pair MLP (kernel, plain, the concat and
+            split-weight library forms) at E = 1024 and 16384
 
-The line before the last is the kernels' JSON record (then the card once
-more); the last line is {"ok": true, "device": {...}}.
+The timing helpers and the seeded models are the package's own
+(`benchmarks/_util.py`, `benchmarks/_synthetic.py`).  The line before the
+last is the kernels' JSON record: the production attention kernel, the
+pair MLP and the seven attention-variant forms (then the card once more);
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -64,20 +98,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from relpose_gnn_tpu_torch.benchmarks import bench_pair_mlp
+from relpose_gnn_tpu_torch.benchmarks import (_synthetic, _util,
+                                              bench_att_core, bench_att_exp2,
+                                              bench_att_variants,
+                                              bench_att_variants2, bench_eval,
+                                              bench_pair_mlp,
+                                              bench_retrieval_stages,
+                                              bench_service,
+                                              bench_service_bisect)
+from relpose_gnn_tpu_torch.benchmarks._util import in_turns, median_ms
 from relpose_gnn_tpu_torch.data.packed import (PackedGraphDataset,
                                                PackedGraphWriter)
 from relpose_gnn_tpu_torch.data.pipeline import make_normalizer
 from relpose_gnn_tpu_torch.evaluation import serving
 from relpose_gnn_tpu_torch.evaluation.evaluator import compute_pose_errors
+from relpose_gnn_tpu_torch.evaluation.multiscene import MultiSceneService
 from relpose_gnn_tpu_torch.evaluation.service import (RelocalizationService,
-                                                      ServiceConfig)
-from relpose_gnn_tpu_torch.models.fold_bn import fold_relpose_backbone
-from relpose_gnn_tpu_torch.models.netvlad import NetVLADEncoder
-from relpose_gnn_tpu_torch.models.posenet import (RelPoseGNN,
-                                                  RelPoseGNNConfig,
-                                                  init_weights)
-from relpose_gnn_tpu_torch.ops import _build, att_core, pair_mlp
+                                                      ServiceConfig,
+                                                      similarities)
+from relpose_gnn_tpu_torch.models.posenet import RelPoseGNN
+from relpose_gnn_tpu_torch.ops import _build, att_core, att_variants, pair_mlp
 from relpose_gnn_tpu_torch.retrieval.subsample import fold_in
 
 SEED = 0
@@ -95,18 +135,28 @@ PAIR_F32_TOL = dict(rtol=1e-4, atol=1e-3)
 # (up to ~8) flips of above-average terms (3 rms) in one row move it by
 # 8 * 2^-8 * 3 rms = 0.09 rms, which is 2e-3 of 45 rms.
 PAIR_BF16_TOL = 2e-3
+# attention-variant kernels, max |kernel - plain| over max |y|, float32 and
+# bfloat16 inputs (widened exactly on load).  y is a ratio of two sums of
+# C positive weights.  Kernel and plain version sum in different orders:
+# about sqrt(C) * 2^-24 relative, 1e-6 at C = 256.  expf and exp2f are
+# good to 2 ulp, 2.4e-7.  The exp2 forms round phi * log2(e) once, which
+# moves a weight by |f2| * 2^-24 relative, 2e-6 at |f| = 20.  The 3xTF32
+# split (by truncation) drops w_lo * g_lo and the low parts' tails, about
+# 2^-20 = 1e-6, the share from w alike in numerator and denominator.
+# Together a few 1e-6.  1e-5 is the bar the JAX benches set.
+VARIANT_REL_TOL = 1e-5
+# the one library call that computes the attention core (`library_core`),
+# max |library - plain| over max |y|.  It is only timed, and held to the
+# plain version so that the time is that of the same function: float32
+# inputs sum in float32 in another order (about 1e-6, as above); bfloat16
+# inputs come back rounded to bfloat16, 2^-9 of |y| at most, after a
+# softmax that may itself be kept in bfloat16 (2^-8 per weight).
+LIBRARY_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 H, W = 256, 341
 N_DB, N_QUERIES, BATCH = 64, 48, 16
 BENCH_BATCH, ITERS = 128, 20
+ATT_BENCH_ITERS = 40
 MEAN, STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
-
-# the card's published peaks (NVIDIA H100 SXM data sheet, dense)
-PEAK_BYTES = 3.35e12
-PEAK_BF16 = 989e12
-PEAK_FP32 = 67e12
-# exponentials per second: 16 per SM per clock x 132 SMs x 1.98 GHz; an
-# estimate of the special-function rate, which no data sheet states
-PEAK_EXP = 16 * 132 * 1.98e9
 
 
 @dataclasses.dataclass
@@ -127,42 +177,9 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
 
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
-
-
-def cuda_median_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
-    """Median over `iters` calls of fn's device time (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def in_turns(forms: dict, iters: int = ITERS) -> dict:
-    """Median ms of each form, timed forwards then backwards (a, b, c, c,
-    b, a) so that clock drift falls on all alike; the mean of the two."""
-    names = list(forms)
-    runs = {n: [] for n in names}
-    for n in names + names[::-1]:
-        runs[n].append(cuda_median_ms(forms[n], iters))
-    return {n: statistics.mean(v) for n, v in runs.items()}
 
 
 def short_kernel_name(name: str) -> str:
@@ -234,7 +251,8 @@ def build_kernels() -> None:
         return name, lib, time.perf_counter() - t0
 
     names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
-    check(names == ["att_core", "pair_mlp"], f"kernel sources {names}")
+    check(names == ["att_core", "att_variants", "pair_mlp"],
+          f"kernel sources {names}")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(one, names))
@@ -251,6 +269,27 @@ def build_kernels() -> None:
 # ---------------------------------------------------------------------------
 # kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+
+def library_core(phi, theta, g):
+    """The attention core as one library call, for `library_ms` only (the
+    port never calls it): attention over one-wide heads,
+    softmax_j(phi_i * theta_j) . g_j with q = phi[E, C, 1], k = theta,
+    v = g and scale 1.  No fused backend takes a head width of 1, so the
+    call materialises the [E, C, C] weights as the plain version does."""
+    return F.scaled_dot_product_attention(
+        phi[..., None], theta[..., None], g[..., None], scale=1.0)[..., 0]
+
+
+def check_library_core(args, want: torch.Tensor, label: str) -> None:
+    """The library call computes the same function as the plain version."""
+    got = library_core(*args).float()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    tol = LIBRARY_REL_TOL[args[0].dtype]
+    check(err < tol * scale, f"library call at {label}: max abs err {err} "
+          f"against the plain version (max |y| {scale}, tolerance {tol} "
+          "relative)")
 
 
 def check_attention_kernel(dev) -> float:
@@ -358,6 +397,83 @@ def check_pair_mlp_kernel(dev) -> float:
     return worst
 
 
+# the attention-variant forms: key in att_variants.LAUNCHES -> (wrapper,
+# kernel form code, TPU kernel body it replaces, bench entry that runs it)
+VARIANT_FORMS = {
+    "variant_core/v1_exp2": (
+        functools.partial(att_variants.variant_core, "v1_exp2"), 3,
+        "benchmarks/bench_att_variants.py:44", "bench_att_variants.main"),
+    "variant_core/v2_mxu": (
+        functools.partial(att_variants.variant_core, "v2_mxu"), 4,
+        "benchmarks/bench_att_variants.py:56", "bench_att_variants.main"),
+    "variant_core/v3_exp2_mxu": (
+        functools.partial(att_variants.variant_core, "v3_exp2_mxu"), 5,
+        "benchmarks/bench_att_variants.py:56", "bench_att_variants.main"),
+    "restructured_core/base": (
+        functools.partial(att_variants.restructured_core, "base"), 0,
+        "relpose_gnn_tpu/ops/att_pallas.py:45", "bench_att_variants2.main"),
+    "restructured_core/v1": (
+        functools.partial(att_variants.restructured_core, "v1"), 1,
+        "benchmarks/bench_att_variants2.py:50", "bench_att_variants2.main"),
+    "restructured_core/v2": (
+        functools.partial(att_variants.restructured_core, "v2"), 2,
+        "benchmarks/bench_att_variants2.py:64", "bench_att_variants2.main"),
+    "exp2_core": (att_variants.exp2_core, 3,
+                  "benchmarks/bench_att_exp2.py:37", "bench_att_exp2.main"),
+}
+# the shape each bench entry runs its forms at (float32)
+VARIANT_BENCH_E = {"bench_att_variants.main": 32768,
+                   "bench_att_variants2.main": 16384,
+                   "bench_att_exp2.main": 16384}
+
+
+def check_variant_kernels(dev) -> dict:
+    """Every attention-variant kernel against its own plain version and
+    against the production kernel, float32 and bfloat16 inputs, at ragged
+    shapes too; `v1` against `base` bit for bit.  Returns the largest
+    absolute error of each form against its plain version.
+
+    Tolerance VARIANT_REL_TOL, relative to max |y|: see its derivation."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    worst = {key: 0.0 for key in VARIANT_FORMS}
+    for e, c in ((72, 40), (72, 130), (64, 256), (4096, 256)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [(torch.randn(e, c, device=dev, generator=gen) * 1.5
+                     ).to(dtype) for _ in range(3)]
+            k1 = att_core.attention_core(*args)
+            outs, rels = {}, []
+            for key, (fn, form, _, _) in VARIANT_FORMS.items():
+                got = fn(*args)
+                want = att_variants.PLAIN[form](*args)
+                torch.cuda.synchronize()
+                scale = want.abs().max().item()
+                err = (got - want).abs().max().item()
+                err_k1 = (got - k1).abs().max().item()
+                worst[key] = max(worst[key], err)
+                check(bool(torch.isfinite(got).all())
+                      and err < VARIANT_REL_TOL * scale
+                      and err_k1 < VARIANT_REL_TOL * scale,
+                      f"{key} at E={e} C={c} {dtype}: max abs err {err} "
+                      f"against its plain version, {err_k1} against the "
+                      f"production kernel (max |y| {scale})")
+                outs[key] = got
+                rels.append(max(err, err_k1) / scale)
+            check(torch.equal(outs["restructured_core/v1"],
+                              outs["restructured_core/base"]),
+                  f"v1 differs from base at E={e} C={c} {dtype}: analytic "
+                  "and scanned row max must agree bit for bit")
+            check(torch.equal(outs["restructured_core/v1"], k1),
+                  f"v1 differs from the production kernel at E={e} C={c} "
+                  f"{dtype}: both are the analytic one-pass form")
+            phase("kernel", f"attention variants E={e} C={c} "
+                  f"{str(dtype)[6:]}: {len(outs)} forms within "
+                  f"{max(rels):.2e} of their plain versions and of the "
+                  f"production kernel (relative to max |y|, tolerance "
+                  f"{VARIANT_REL_TOL}); v1 == base == production kernel "
+                  "bit for bit")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # the pair-MLP bench entry
 # ---------------------------------------------------------------------------
@@ -385,6 +501,70 @@ def run_pair_mlp_bench() -> int:
 
 
 # ---------------------------------------------------------------------------
+# the attention bench entries
+# ---------------------------------------------------------------------------
+
+
+def run_attention_benches() -> tuple:
+    """Drives `bench_att_core`, `bench_att_variants`, `bench_att_variants2`
+    and `bench_att_exp2` in process through their `main`, at the shapes
+    the JAX benches use, with every launch count set to 0 just before each
+    and read just after.  Returns ({variant key: launches on its bench
+    entry}, {bench entry: production-kernel launches}, {variant key: (its
+    ms, the production kernel's ms in turns with it) at its bench entry's
+    shape})."""
+    per_turns = _util.turn_calls(ATT_BENCH_ITERS)
+    variant_launches, core_launches, bench_ms = {}, {}, {}
+
+    def drive(bench, argv, own_checks):
+        """own_checks: launches of each of the bench's forms outside the
+        timed turns."""
+        name = f"{bench.__name__.rsplit('.', 1)[-1]}.main"
+        att_core.LAUNCHES = 0
+        att_variants.reset_launches()
+        out = bench.main([*argv, "--iters", str(ATT_BENCH_ITERS)])
+        torch.cuda.synchronize()
+        core_launches[name] = att_core.LAUNCHES
+        for key, n in att_variants.LAUNCHES.items():
+            if VARIANT_FORMS[key][3] != name:
+                check(n == 0, f"{name} launched {key} {n} times")
+                continue
+            check(n == own_checks + per_turns == out["launches"][key],
+                  f"{name} launched {key} {n} times, expected "
+                  f"{own_checks + per_turns} (record says "
+                  f"{out['launches'][key]})")
+            variant_launches[key] = n
+            short = "exp2" if key == "exp2_core" else key.split("/")[1]
+            bench_ms[key] = (out["ms"][short], out["ms"]["v0"])
+        phase("bench", f"{name} E={out['e']} C={out['c']}: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in out["ms"].items())
+              + f"; launches {dict(att_variants.LAUNCHES)}, production "
+              f"kernel {att_core.LAUNCHES}")
+        return out
+
+    att_core.LAUNCHES = 0
+    out = bench_att_core.main(["--iters", str(ATT_BENCH_ITERS)])
+    torch.cuda.synchronize()
+    check(att_core.LAUNCHES == out["launches"] == 2 * (1 + per_turns),
+          f"bench_att_core launched the kernel {att_core.LAUNCHES} times")
+    check(all(v < VARIANT_REL_TOL for v in out["rel_max_diff"].values()),
+          f"bench_att_core: kernel vs plain {out['rel_max_diff']}")
+    core_launches["bench_att_core.main"] = att_core.LAUNCHES
+    phase("bench", f"bench_att_core.main E={out['e']} C={out['c']}: "
+          f"{out['ms']}; kernel launches {att_core.LAUNCHES}")
+
+    drive(bench_att_variants, [], own_checks=1)
+    out = drive(bench_att_variants2, [], own_checks=2)
+    check(out["exact"]["v1"]["mismatched"] == 0, "v1 not bit-exact")
+    phase("bench", f"bench_att_variants2 exactness on 64 rows: "
+          f"{out['exact']}")
+    drive(bench_att_exp2, [], own_checks=1)
+    check(set(variant_launches) == set(VARIANT_FORMS),
+          f"bench entries reached only {sorted(variant_launches)}")
+    return variant_launches, core_launches, bench_ms
+
+
+# ---------------------------------------------------------------------------
 # cached evaluation of a packed store
 # ---------------------------------------------------------------------------
 
@@ -404,36 +584,6 @@ def write_store(root: str, rng: np.random.Generator) -> np.ndarray:
                    nbr_idx=nbr)
     writer.finalize()
     return db
-
-
-def r3_model(dev) -> RelPoseGNN:
-    """R3 serving form: seeded weights, random BN statistics, folded."""
-    cfg = RelPoseGNNConfig.preset("R3", dtype=torch.bfloat16,
-                                  compact_edges=True)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    with torch.device(dev):
-        model = RelPoseGNN(cfg).eval()
-    init_weights(model, gen)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
-                m.running_mean.uniform_(-0.1, 0.1, generator=gen)
-                m.running_var.uniform_(0.8, 1.2, generator=gen)
-    _, folded = fold_relpose_backbone(model)
-    return folded
-
-
-def netvlad_encoder(dev) -> NetVLADEncoder:
-    """VGG16 + NetVLAD at the published size (64 clusters x 512), seeded
-    weights, bfloat16 compute like the pose model."""
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    with torch.device(dev):
-        enc = NetVLADEncoder(num_clusters=64, encoder_dim=512,
-                             dtype=torch.bfloat16).eval()
-    init_weights(enc, gen)
-    with torch.no_grad():
-        enc.pool.centroids.uniform_(0, 1, generator=gen)
-    return enc
 
 
 def run_slice(dev, model: RelPoseGNN, tmp: str) -> int:
@@ -517,21 +667,8 @@ def run_slice(dev, model: RelPoseGNN, tmp: str) -> int:
 
 
 def synthetic_frames(dev, n: int, seed: int) -> np.ndarray:
-    """n uint8 frames [n, H, W, 3], made on the card in bulk: each is a
-    smooth random colour field (a 6x8 grid enlarged to HxW) plus pixel
-    noise, so frames differ in their large-scale structure the way views
-    of different places do, and no two are near-duplicates."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    out = []
-    for i in range(0, n, 128):
-        k = min(128, n - i)
-        coarse = torch.rand(k, 3, 6, 8, device=dev, generator=gen)
-        img = F.interpolate(coarse, size=(H, W), mode="bicubic",
-                            align_corners=False)
-        img = img + 0.05 * torch.randn(k, 3, H, W, device=dev, generator=gen)
-        img = (img.clamp(0, 1) * 255).to(torch.uint8).permute(0, 2, 3, 1)
-        out.append(img.contiguous().cpu().numpy())
-    return np.concatenate(out)
+    """n uint8 frames [n, H, W, 3] on the host (made on the card)."""
+    return _synthetic.synthetic_frames(dev, n, H, W, seed).numpy()
 
 
 def same_result(a: dict, b: dict) -> bool:
@@ -733,35 +870,283 @@ def exercise_service(dev, model: RelPoseGNN, netvlad, mode: str,
 
 
 # ---------------------------------------------------------------------------
+# multi-scene serving
+# ---------------------------------------------------------------------------
+
+# three scenes with their own pixel statistics (of the size of 7-Scenes'
+# per-scene stats; none a power of two, so 1/std is inexact)
+SCENES = {"chess": ([0.501, 0.442, 0.447], [0.207, 0.225, 0.218]),
+          "fire": ([0.522, 0.462, 0.423], [0.226, 0.227, 0.215]),
+          "office": ([0.473, 0.445, 0.430], [0.245, 0.240, 0.233])}
+
+
+def exercise_multiscene(dev, model: RelPoseGNN, netvlad, sizes: ServiceSizes,
+                        tmp: str) -> tuple:
+    """One model serving three scenes at full width (R3 + VGG16/NetVLAD,
+    each scene `sizes.build` frames in capacity `sizes.capacity`), queried
+    at batch `sizes.queries`.  Returns (the service, {scene: queries}, the
+    attention kernel's launches on this path).  Checks:
+
+      * each scene's tables and answers equal, bit for bit, those of a
+        single-scene `RelocalizationService` built on the same frames and
+        queried with the scene's `norm_ms`;
+      * the same pixels asked of two scenes are answered from each
+        scene's own tables; growing, tombstoning and compacting one scene
+        leaves the others' answers bit-identical;
+      * per scene: add, invalidate, compact (answers agree through
+        old_to_new, poses bit for bit), save, load into a new service
+        (tables and answers bit-identical);
+      * the stream equals its batches queried one by one;
+      * the attention kernel is launched gnn_recursion times per batch."""
+    cfg = ServiceConfig(capacity=sizes.capacity, retrieval="netvlad",
+                        retrieval_hw=sizes.retrieval_hw,
+                        retrieval_candidates=256)
+    rec = model.cfg.gnn_recursion
+    total_launches = 0
+    ms = MultiSceneService(model, netvlad, cfg)
+    rng = np.random.default_rng(SEED + 20)
+
+    def ask(svc_query, n_rows):
+        nonlocal total_launches
+        att_core.LAUNCHES = 0
+        out = svc_query()
+        torch.cuda.synchronize()
+        check(att_core.LAUNCHES == rec, "multi-scene: attention kernel "
+              f"launched {att_core.LAUNCHES} times by one query batch, "
+              f"expected {rec}")
+        total_launches += att_core.LAUNCHES
+        check(tuple(out["pose"].shape) == (n_rows, 6)
+              and bool(torch.isfinite(out["pose"]).all())
+              and tuple(out["neighbors"].shape) == (n_rows, 7),
+              "multi-scene: poses not finite [B, 6] or neighbours not "
+              "[B, 7]")
+        return out
+
+    frames, poses, queries, answers = {}, {}, {}, {}
+    for i, (name, (mean, std)) in enumerate(SCENES.items()):
+        n_all = sizes.build + sizes.add
+        frames[name] = synthetic_frames(dev, n_all, SEED + 30 + i)
+        poses[name] = rng.normal(size=(n_all, 6)).astype(np.float32)
+        queries[name] = synthetic_frames(dev, sizes.queries, SEED + 40 + i)
+        t0 = time.perf_counter()
+        ms.add_scene(name, frames[name][:sizes.build],
+                     poses[name][:sizes.build], mean, std,
+                     batch=sizes.embed_batch)
+        torch.cuda.synchronize()
+        t_add = time.perf_counter() - t0
+        db = ms._scenes[name]
+        check(tuple(db.desc.shape) == (sizes.capacity, 64 * 512)
+              and db.desc.dtype == torch.float32
+              and ms.scene_count(name) == sizes.build,
+              f"multi-scene: scene {name} tables {tuple(db.desc.shape)}")
+
+        # the same scene in a single-scene service, norm_ms form
+        mean_t = torch.tensor(mean, device=dev)
+        std_t = torch.tensor(std, device=dev)
+
+        def norm(x01, mean_t=mean_t, std_t=std_t):
+            return (x01 - mean_t) * (1.0 / std_t)
+
+        single = RelocalizationService(model, netvlad, cfg)
+        single.build(frames[name][:sizes.build], poses[name][:sizes.build],
+                     norm, batch=sizes.embed_batch)
+        check(torch.equal(single.db_desc, db.desc)
+              and torch.equal(single.db_emb, db.emb)
+              and torch.equal(single.db_poses, db.poses)
+              and torch.equal(single.db_valid, db.valid),
+              f"multi-scene: scene {name} tables differ from the "
+              "single-scene service's")
+        q = queries[name]
+        answers[name] = ask(lambda: ms.query(name, q, 5), len(q))
+        want = ask(lambda: single.query(q, None, 5, norm_ms=(mean, std)),
+                   len(q))
+        check(same_result(answers[name], want),
+              f"multi-scene: scene {name} answers differ from the "
+              "single-scene service's")
+        check(bool(db.valid[answers[name]["neighbors"]].all()),
+              f"multi-scene: scene {name} returned a padded slot")
+        del single
+        mib = db.desc.numel() * db.desc.element_size() / 2 ** 20
+        phase("multiscene", f"scene {name}: {sizes.build} frames embedded "
+              f"in {t_add:.2f} s into capacity {sizes.capacity} "
+              f"(descriptor table {mib:.0f} MiB); tables and "
+              f"{len(q)} stochastic answers equal the single-scene "
+              "service's with norm_ms, bit for bit")
+    names = list(SCENES)
+    check(ms.scenes() == names, f"multi-scene: scenes {ms.scenes()}")
+
+    # -- scenes do not leak --------------------------------------------
+    q = queries[names[0]]
+    cross = ask(lambda: ms.query(names[1], q, 5), len(q))
+    check(not torch.equal(cross["neighbors"], answers[names[0]]["neighbors"])
+          and not torch.equal(cross["pose"], answers[names[0]]["pose"]),
+          "multi-scene: the same pixels got the same answer from two scenes")
+
+    # -- mutations of one scene ----------------------------------------
+    first = names[0]
+    ms.add_frames(first, frames[first][sizes.build:],
+                  poses[first][sizes.build:], batch=sizes.embed_batch)
+    dead = rng.choice(sizes.build + sizes.add, sizes.invalidate,
+                      replace=False)
+    ms.invalidate_frames(first, dead)
+    before = ask(lambda: ms.query(first, queries[first], 5),
+                 sizes.queries)
+    check(not np.isin(before["neighbors"].cpu().numpy(), dead).any(),
+          "multi-scene: a tombstoned frame was returned")
+    old_to_new = ms.compact_scene(first)
+    n_live = sizes.build + sizes.add - sizes.invalidate
+    check(ms.scene_count(first) == n_live
+          and bool((old_to_new[dead] == -1).all()),
+          f"multi-scene: count after compaction {ms.scene_count(first)}")
+    after = ask(lambda: ms.query(first, queries[first], 5), sizes.queries)
+    check(np.array_equal(old_to_new[before["neighbors"].cpu().numpy()],
+                         after["neighbors"].cpu().numpy())
+          and torch.equal(before["pose"], after["pose"]),
+          "multi-scene: answers changed under compaction")
+    for name in names[1:]:
+        check(ms.scene_count(name) == sizes.build and same_result(
+            ask(lambda: ms.query(name, queries[name], 5), sizes.queries),
+            answers[name]),
+            f"multi-scene: scene {name} changed when {first} was mutated")
+    phase("multiscene", f"scene {first}: added {sizes.add}, invalidated "
+          f"{sizes.invalidate}, compacted to {n_live} rows; answers agree "
+          "through old_to_new, poses bit for bit; the other scenes answer "
+          "bit-identically; the same pixels get different answers from "
+          "two scenes")
+
+    # -- snapshot of all scenes into a new service ---------------------
+    path = os.path.join(tmp, "multiscene.npz")
+    t0 = time.perf_counter()
+    ms.save_database(path)
+    loaded = MultiSceneService(model, netvlad, cfg)
+    loaded.load_database(path)
+    t_snap = time.perf_counter() - t0
+    for name in names:
+        a, b = ms._scenes[name], loaded._scenes[name]
+        check(a.count == b.count and torch.equal(a.desc, b.desc)
+              and torch.equal(a.emb, b.emb)
+              and torch.equal(a.poses, b.poses)
+              and torch.equal(a.valid, b.valid) and a.hw == b.hw
+              and torch.equal(a.norm_ms[1], b.norm_ms[1]),
+              f"multi-scene: loaded scene {name} differs from the saved")
+        check(same_result(
+            ask(lambda: loaded.query(name, queries[name], 5), sizes.queries),
+            ask(lambda: ms.query(name, queries[name], 5), sizes.queries)),
+            f"multi-scene: the loaded scene {name} answers differently")
+    phase("multiscene", f"snapshot of {len(names)} scenes, "
+          f"{os.path.getsize(path) / 2 ** 20:.0f} MiB, saved and loaded "
+          f"into a new service in {t_snap:.2f} s; it answers "
+          "bit-identically")
+    del loaded
+
+    # -- stream ----------------------------------------------------------
+    last = names[-1]
+    batches = [queries[last][i * sizes.stream_batch:
+                             (i + 1) * sizes.stream_batch]
+               for i in range(sizes.stream_batches)]
+    one_by_one = [ask(lambda: ms.query(last, b, fold_in(7, i)), len(b))
+                  for i, b in enumerate(batches)]
+    att_core.LAUNCHES = 0
+    streamed = list(ms.query_stream(last, batches, depth=2, rng=7))
+    check(att_core.LAUNCHES == rec * len(batches),
+          f"multi-scene: stream launched the attention kernel "
+          f"{att_core.LAUNCHES} times")
+    total_launches += att_core.LAUNCHES
+    check(len(streamed) == len(batches) and all(
+        same_result(s, o) for s, o in zip(streamed, one_by_one)),
+        "multi-scene: the stream differs from one-by-one queries")
+    phase("multiscene", f"scene {last}: stream of {len(batches)} x "
+          f"{sizes.stream_batch} at depth 2 == one by one; attention "
+          f"kernel {rec} launches per batch, {total_launches} on this path")
+    return ms, queries, total_launches
+
+
+def run_service_benches() -> None:
+    """Drives `bench_service` (synthetic tables of the deployment's size,
+    both legs), `bench_service_bisect`, `bench_retrieval_stages` and
+    `bench_eval` through their `main`, in process."""
+    out = bench_service.main(["--synth-db", "--db", "2048", "--iters",
+                              str(ITERS)])
+    torch.cuda.synchronize()
+    check(out["mfu"] is not None and 0.0 < out["mfu"] < 1.0,
+          f"bench_service: mfu {out['mfu']}")
+    check(out["qps"] > 0 and out["host_sync_qps"] > 0
+          and out["host_pipelined_qps"] > 0, f"bench_service: {out}")
+    phase("bench", f"bench_service.main batch {out['batch']} db "
+          f"{out['db']} {out['retrieval_mode']}: {out['qps']} q/s "
+          f"({out['step_ms']} ms), mfu {out['mfu']} "
+          f"({out['flops_per_step'] / 1e12} TFLOP per step), peak memory "
+          f"{out['peak_memory_gib']} GiB; host uint8 sync "
+          f"{out['host_sync_qps']} q/s, pipelined "
+          f"{out['host_pipelined_qps']} q/s")
+    out = bench_service_bisect.main(["--batch", str(BENCH_BATCH), "--db",
+                                     "2048", "--iters", str(ITERS)])
+    torch.cuda.synchronize()
+    stages = out["stage_ms"]
+    check(set(stages) == set(bench_service_bisect.STAGES)
+          and all(0 < ms < float("inf") for ms in stages.values())
+          and stages["full"] > max(ms for k, ms in stages.items()
+                                   if k != "full"),
+          f"bench_service_bisect: {out}")
+    phase("bench", f"bench_service_bisect.main batch {out['batch']} db "
+          f"{out['db']} {out['retrieval_mode']}: "
+          + ", ".join(f"{k} {ms} ms" for k, ms in stages.items()))
+    out = bench_retrieval_stages.main(["--batch", str(BENCH_BATCH), "--db",
+                                       "2048", "--iters", str(ITERS)])
+    torch.cuda.synchronize()
+    rows = out["stages"]
+    check(list(rows) == list(bench_retrieval_stages.STAGES)
+          and all(row["ms"] > 0 and 0.0 < row["bf16_peak_share"] < 1.0
+                  for row in rows.values()),
+          f"bench_retrieval_stages: {out}")
+    phase("bench", f"bench_retrieval_stages.main batch {out['batch']} db "
+          f"{out['db']} {out['rank_dtype']} table: "
+          + ", ".join(f"{k} {row['ms']} ms ({row['gflop']} GFLOP, "
+                      f"{row['bf16_peak_share']} of bf16 peak)"
+                      for k, row in rows.items()))
+    out = bench_eval.main(["--iters", str(ITERS)])
+    torch.cuda.synchronize()
+    check(out["mfu"] is not None and 0.0 < out["mfu"] < 1.0
+          and out["value"] > 0, f"bench_eval: {out}")
+    phase("bench", f"bench_eval.main batch {out['batch']}: {out['value']} "
+          f"q/s ({out['step_ms']} ms), mfu {out['mfu']} "
+          f"({out['step_gflops']} GFLOP per step), peak memory "
+          f"{out['peak_memory_gib']} GiB")
+
+
+# ---------------------------------------------------------------------------
 # time
 # ---------------------------------------------------------------------------
 
 
 def time_cached_eval(dev, model: RelPoseGNN, card: str) -> dict:
-    """Attention core and the R3 cached eval step.  Returns the core's
-    record at the main path's shape (E = 32 x batch 128, C = 256, bf16)."""
+    """Attention core (kernel, plain version and the library call, in
+    turns) and the R3 cached eval step.  Returns the core's record at the
+    main path's shape (E = 32 x batch 128, C = 256, bf16)."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     core = {}
     for e in (4096, 16384):
         for dtype in (torch.bfloat16, torch.float32):
             args = [torch.randn(e, 256, device=dev, generator=gen).to(dtype)
                     for _ in range(3)]
-            k = cuda_median_ms(lambda: att_core.attention_core(*args))
-            p = cuda_median_ms(lambda: att_core.attention_core_plain(*args))
-            core[(e, dtype)] = (k, p)
-            phase("time", f"attention_core E={e} C=256 {str(dtype)[6:]}: "
-                  f"kernel {k} ms, plain {p} ms ({card})")
+            check_library_core(args, att_core.attention_core_plain(*args),
+                               f"E={e} C=256 {dtype}")
+            ms = in_turns({
+                "kernel": lambda: att_core.attention_core(*args),
+                "plain": lambda: att_core.attention_core_plain(*args),
+                "library": lambda: library_core(*args)})
+            core[(e, dtype)] = ms
+            phase("time", f"attention_core E={e} C=256 {str(dtype)[6:]}, in "
+                  f"turns: kernel {ms['kernel']} ms, plain {ms['plain']} "
+                  f"ms, library (scaled_dot_product_attention, head width "
+                  f"1) {ms['library']} ms ({card})")
     e, c = 4096, 256
-    bytes_ms = (3 * e * c * 2 + e * c * 4) / PEAK_BYTES * 1e3
-    exp_ms = e * c * c / PEAK_EXP * 1e3
-    flop_ms = 5 * e * c * c / PEAK_FP32 * 1e3
-    bound = max(bytes_ms, exp_ms, flop_ms)
-    phase("time", f"attention_core E={e} C={c} bf16 bound: bytes "
-          f"{bytes_ms} ms (3 inputs once, output once, at 3.35 TB/s), "
-          f"E*C^2 exponentials {exp_ms} ms at an estimated {PEAK_EXP:.3e} "
-          f"exp/s, 5 float32 operations per logit {flop_ms} ms at 67 "
-          f"TFLOP/s; bound {bound} ms by "
-          f"{'bytes' if bound == bytes_ms else 'operations'}")
+    bound = _util.bound_ms(att_variants.core_work(e, c, 2, None))
+    phase("time", f"attention_core E={e} C={c} bf16 bound: "
+          f"{bound['bound_ms']} ms by {bound['bound_by']} (ms by part: "
+          f"{bound['parts']}; 3 inputs once and the output once at 3.35 "
+          f"TB/s, E*C^2 exponentials at an estimated {_util.PEAK_EXP:.3e} "
+          "exp/s, 5 float32 operations per logit at 67 TFLOP/s)")
 
     rng = np.random.default_rng(SEED + 1)
     normalize = make_normalizer(MEAN, STD, dev)
@@ -779,10 +1164,10 @@ def time_cached_eval(dev, model: RelPoseGNN, card: str) -> dict:
         if plain:
             with mock.patch.object(att_core, "attention_core",
                                    att_core.attention_core_plain):
-                runs.append(cuda_median_ms(lambda: step(q, nbr_emb, poses,
+                runs.append(median_ms(lambda: step(q, nbr_emb, poses,
                                                         adj)))
         else:
-            runs.append(cuda_median_ms(lambda: step(q, nbr_emb, poses, adj)))
+            runs.append(median_ms(lambda: step(q, nbr_emb, poses, adj)))
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     k_ms, p_ms = statistics.mean(runs[::3]), statistics.mean(runs[1:3])
     phase("time", f"R3 cached eval step, batch {BENCH_BATCH}, bf16, "
@@ -790,11 +1175,91 @@ def time_cached_eval(dev, model: RelPoseGNN, card: str) -> dict:
           f"{BENCH_BATCH / k_ms * 1e3} q/s; plain core "
           f"{runs[1]}/{runs[2]} ms = {BENCH_BATCH / p_ms * 1e3} q/s; "
           f"peak memory {peak} GiB ({card})")
-    return {"ms": core[(4096, torch.bfloat16)][0],
-            "plain_ms": core[(4096, torch.bfloat16)][1],
-            "bound_ms": bound,
-            "bound_by": "bytes" if bound == bytes_ms else "operations",
-            "library_ms": None}
+    main_path = core[(4096, torch.bfloat16)]
+    return {"ms": main_path["kernel"], "plain_ms": main_path["plain"],
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": main_path["library"]}
+
+
+def time_variants(dev, card: str, bench_ms: dict) -> tuple:
+    """Every attention-variant kernel at its bench entry's shape and on
+    its bench entry's inputs (C = 256, float32; E = 32768 or 16384): the
+    kernel's output against its plain version's (VARIANT_REL_TOL of
+    max |y|), `v1 == base` bit for bit, the plain version and the library
+    call timed in turns (median of 5; both materialise the [E, C, C]
+    weights), and the bound.  The kernels' own times are the bench
+    entries', `bench_ms`.  Returns ({form key: its record}, {form key:
+    max abs err against the plain version at this shape})."""
+    c = 256
+    records, errs, outs = {}, {}, {}
+    for key, (fn, form, _, entry) in VARIANT_FORMS.items():
+        e = VARIANT_BENCH_E[entry]
+        args = bench_att_core.att_inputs(e, c, dev)
+        torch.cuda.empty_cache()
+        got = fn(*args)
+        want = att_variants.PLAIN[form](*args)
+        scale = want.abs().max().item()
+        errs[key] = (got - want).abs().max().item()
+        check(bool(torch.isfinite(got).all())
+              and errs[key] < VARIANT_REL_TOL * scale,
+              f"{key} at E={e} C={c} float32: max abs err {errs[key]} "
+              f"against its plain version (max |y| {scale})")
+        check_library_core(args, want, f"E={e} C={c} float32")
+        outs[key] = got
+        del want
+        ms = in_turns({"plain": lambda: att_variants.PLAIN[form](*args),
+                       "library": lambda: library_core(*args)}, 5, 1)
+        bound = _util.bound_ms(att_variants.core_work(e, c, 4, form))
+        kernel, production = bench_ms[key]
+        records[key] = {"ms": kernel, "production_kernel_ms": production,
+                        "plain_ms": ms["plain"],
+                        "bound_ms": bound["bound_ms"],
+                        "bound_by": bound["bound_by"],
+                        "library_ms": ms["library"], "shape": [e, c]}
+        phase("time", f"{key} E={e} C={c} float32: kernel {kernel} ms in "
+              f"its bench entry ({production / kernel:.3f}x the production "
+              f"kernel's {production} ms beside it), plain {ms['plain']} "
+              f"ms, library {ms['library']} ms, bound {bound['bound_ms']} "
+              f"ms by {bound['bound_by']} ({bound['parts']}); max abs err "
+              f"against plain {errs[key]:.3e} = {errs[key] / scale:.2e} of "
+              f"max |y| ({card})")
+    check(torch.equal(outs["restructured_core/v1"],
+                      outs["restructured_core/base"]),
+          "v1 differs from base at its bench shape: analytic and scanned "
+          "row max must agree bit for bit")
+    phase("time", "restructured_core v1 == base bit for bit at the bench "
+          "shape")
+    del outs
+    torch.cuda.empty_cache()
+    return records, errs
+
+
+def time_multiscene(dev, ms: MultiSceneService, queries: dict,
+                    card: str) -> None:
+    """The multi-scene query step at batch 128, scenes in turns, device
+    time; the request from host uint8; peak memory; bytes per scene."""
+    q8 = {name: torch.from_numpy(q).to(dev) for name, q in queries.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        steps = in_turns({name: (lambda name=name: ms.query(name, q8[name],
+                                                            3))
+                          for name in q8})
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    first = next(iter(queries))
+    host = _util.host_ms(lambda: ms.query(first, queries[first], 3), ITERS,
+                         dev)
+    per_scene = {name: sum(t.numel() * t.element_size()
+                           for t in ms._scenes[name].as_tuple())
+                 for name in q8}
+    b = len(queries[first])
+    phase("time", f"multi-scene query step, netvlad, stochastic, batch {b}, "
+          f"bf16, {len(q8)} scenes at capacity "
+          f"{ms.cfg.capacity}: "
+          + ", ".join(f"{n} {v} ms = {b / v * 1e3} q/s"
+                      for n, v in steps.items())
+          + f"; request from host uint8 {host} ms (host clock); peak "
+          f"memory {peak} GiB; bytes per scene {per_scene} ({card})")
 
 
 def time_service(dev, svc: RelocalizationService, queries: np.ndarray,
@@ -822,7 +1287,7 @@ def time_service(dev, svc: RelocalizationService, queries: np.ndarray,
         else:
             q_desc = F.normalize(svc._encode(model_norm(q01))[:, 0],
                                  dim=-1)
-        sim = svc._similarities(q_desc, svc.db_desc)
+        sim = similarities(q_desc, svc.db_desc)
         nbrs = svc._select(sim, svc.db_valid, 0)
         q_emb = svc._encode(model_norm(q01))
         table_bf16 = svc.db_desc.to(torch.bfloat16)
@@ -830,10 +1295,10 @@ def time_service(dev, svc: RelocalizationService, queries: np.ndarray,
             len(q8), 8, 8)
         stages = {
             "encode (ResNet34)": lambda: svc._encode(model_norm(q01)),
-            "rank, float32 table": lambda: svc._similarities(q_desc,
-                                                             svc.db_desc),
-            "rank, bfloat16 table": lambda: svc._similarities(q_desc,
-                                                              table_bf16),
+            "rank, float32 table": lambda: similarities(q_desc,
+                                                        svc.db_desc),
+            "rank, bfloat16 table": lambda: similarities(q_desc,
+                                                         table_bf16),
             "select, deterministic": lambda: svc._select(sim, svc.db_valid,
                                                          0),
             "select, stochastic window 256": lambda: sto._select(
@@ -855,22 +1320,17 @@ def time_service(dev, svc: RelocalizationService, queries: np.ndarray,
             "stochastic": lambda: sto.query_with_db(db, q8, model_norm, 3),
         })
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        parts = {name: cuda_median_ms(fn) for name, fn in stages.items()}
+        parts = {name: median_ms(fn) for name, fn in stages.items()}
     # request time: host upload of the uint8 batch included, host clock
-    host = []
-    for _ in range(ITERS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        svc.query_with_db(db, queries, model_norm)
-        torch.cuda.synchronize()
-        host.append((time.perf_counter() - t0) * 1e3)
+    host = _util.host_ms(lambda: svc.query_with_db(db, queries, model_norm),
+                         ITERS, dev)
     b = len(q8)
     phase("time", f"service query step, {mode}, batch {b}, bf16, "
           f"{svc.db_count} frames in capacity {svc.db_desc.shape[0]}: "
           f"deterministic {steps['deterministic']} ms = "
           f"{b / steps['deterministic'] * 1e3} q/s; stochastic "
           f"{steps['stochastic']} ms = {b / steps['stochastic'] * 1e3} "
-          f"q/s; request from host uint8 {statistics.median(host)} ms "
+          f"q/s; request from host uint8 {host} ms "
           f"(host clock); peak memory {peak} GiB ({card})")
     for name, ms in parts.items():
         phase("time", f"  {mode} stage {name}: {ms} ms")
@@ -904,10 +1364,9 @@ def time_pair_mlp(dev, card: str) -> dict:
         flops = 2 * rows * 2048 * (2 * d + 2048 + 2048)
         moved = sum(t.numel() * t.element_size() for t in (
             ops["xs"], ops["e"], fc1k, fc1b, fc2k, fc2b)) + rows * 2048 * 4
-        flop_ms = flops / PEAK_BF16 * 1e3
-        bytes_ms = moved / PEAK_BYTES * 1e3
-        bound = max(flop_ms, bytes_ms)
-        by = "operations" if bound == flop_ms else "bytes"
+        parts = _util.bound_ms({"bytes": moved, "bf16_ops": flops})
+        bound, by = parts["bound_ms"], parts["bound_by"]
+        flop_ms, bytes_ms = parts["parts"]["bf16"], parts["parts"]["bytes"]
         phase("time", f"fused_pair_mlp E={rows} D=De=H=Dout=2048 bf16: "
               f"kernel {ms['kernel']} ms ({flops / ms['kernel'] / 1e9} "
               f"TFLOP/s), plain {ms['plain']} ms, library concat "
@@ -932,7 +1391,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
-    card = nvidia_smi()
+    card = _util.card_line()
+    check(card is not None, "nvidia-smi gave no name and power limit")
     phase("device", f"{kind}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}; TF32 off")
     print(card, flush=True)
@@ -940,24 +1400,34 @@ def main() -> int:
     build_kernels()
     att_err = check_attention_kernel(dev)
     pair_err = check_pair_mlp_kernel(dev)
+    variant_err = check_variant_kernels(dev)
     pair_launches = run_pair_mlp_bench()
+    variant_launches, att_launches, variant_bench_ms = run_attention_benches()
 
-    model = r3_model(dev)
+    model = _synthetic.pose_model(dev, "R3", torch.bfloat16, SEED)
     sizes = ServiceSizes()
     with tempfile.TemporaryDirectory() as tmp:
-        att_launches = {"evaluate_scene_cached": run_slice(dev, model, tmp)}
+        att_launches["evaluate_scene_cached"] = run_slice(dev, model, tmp)
     timed = {}
     with tempfile.TemporaryDirectory() as tmp:
-        netvlad = netvlad_encoder(dev)
+        netvlad = _synthetic.netvlad_encoder(dev, 64, torch.bfloat16,
+                                             SEED + 1)
         for mode in ("netvlad", "shared-trunk"):
             svc, queries, launches = exercise_service(dev, model, netvlad,
                                                       mode, sizes, tmp)
             att_launches[f"service {mode}"] = launches
             timed[mode] = (svc, queries)
+        multi, multi_queries, launches = exercise_multiscene(
+            dev, model, netvlad, sizes, tmp)
+        att_launches["multi-scene service"] = launches
+    run_service_benches()
 
     att_times = time_cached_eval(dev, model, card)
+    variant_times, variant_bench_err = time_variants(dev, card,
+                                                     variant_bench_ms)
     for mode, (svc, queries) in timed.items():
         time_service(dev, svc, queries, card)
+    time_multiscene(dev, multi, multi_queries, card)
     pair_times = time_pair_mlp(dev, card)
 
     print(json.dumps({"kernels": [
@@ -972,7 +1442,15 @@ def main() -> int:
          "replaces": "relpose_gnn_tpu/ops/gnn_pallas.py:57",
          "launches": pair_launches,
          "launches_by_path": {"bench_pair_mlp.main": pair_launches},
-         "max_abs_err": pair_err, **pair_times}]}))
+         "max_abs_err": pair_err, **pair_times},
+        *({"name": key, "route": "cuda",
+           "source": "relpose_gnn_tpu_torch/csrc/att_variants.cu",
+           "replaces": replaces, "launches": variant_launches[key],
+           "launches_by_path": {entry: variant_launches[key]},
+           "max_abs_err": max(variant_err[key], variant_bench_err[key]),
+           "bench_shape_max_abs_err": variant_bench_err[key],
+           **variant_times[key]}
+          for key, (_, _, replaces, entry) in VARIANT_FORMS.items())]}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

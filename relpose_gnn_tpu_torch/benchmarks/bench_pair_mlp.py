@@ -29,13 +29,13 @@ from __future__ import annotations
 import argparse
 import statistics
 import sys
-import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from relpose_gnn_tpu_torch import resolve_device
+from relpose_gnn_tpu_torch.benchmarks import _util
 from relpose_gnn_tpu_torch.ops import pair_mlp
 
 WARMUP = 2
@@ -62,28 +62,6 @@ def split_form(x, e, fc1_w, fc1_b, fc2_w, fc2_b):
     he = F.linear(eb, fc1_w[:, 2 * d:])               # [B, N, N, H]
     h = F.relu((hs[:, :, None] + ht[:, None, :] + he).float() + fc1_b)
     return F.linear(h.to(torch.bfloat16), fc2_w).float() + fc2_b
-
-
-def _median_ms(fn, iters: int, device: torch.device) -> float:
-    if device.type != "cuda":
-        times = []
-        for _ in range(WARMUP + iters):
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times[WARMUP:])
-    for _ in range(WARMUP):
-        fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 @torch.inference_mode()
@@ -132,7 +110,8 @@ def main(argv=None) -> dict:
     flops = 2 * b * n * n * h * (3 * d + de)
     runs: dict[str, list[float]] = {k: [] for k in forms}
     for name in TURNS:
-        runs[name].append(_median_ms(forms[name], args.iters, device))
+        runs[name].append(_util.median_ms(forms[name], args.iters, WARMUP,
+                                            device))
     results = {k: statistics.mean(v) for k, v in runs.items()}
     for name, label in (("kernel", "kernel            "),
                         ("concat", "concat bf16       "),

@@ -187,6 +187,23 @@ def _compact(desc, emb, poses, valid, count):
     return desc[perm], emb[perm], poses[perm], new_valid, n_valid, old_to_new
 
 
+def similarities(q_desc: torch.Tensor,
+                 db_desc: torch.Tensor) -> torch.Tensor:
+    """[B, Dv] x [M, Dv] -> float32 [B, M].  The table is in rank_dtype
+    and the query is cast to it; products accumulate in float32 and come
+    out in float32 (a bfloat16 GEMM that rounded its output to bfloat16
+    would erase the ranking).  On the card that is
+    `mm(..., out_dtype=float32)`, which reads the table as it is stored;
+    the CPU has no such GEMM, so there both operands are widened first,
+    which gives the same products and sums."""
+    q = q_desc.to(db_desc.dtype)
+    if db_desc.dtype == torch.float32:
+        return q @ db_desc.T
+    if db_desc.device.type == "cuda":
+        return torch.mm(q, db_desc.T, out_dtype=torch.float32)
+    return q.float() @ db_desc.float().T
+
+
 @dataclasses.dataclass
 class ServiceConfig:
     """The JAX `ServiceConfig`, field for field with the same defaults."""
@@ -299,22 +316,23 @@ class RelocalizationService:
         # matmul and similarities accumulate in float32
         return desc.to(self._rank_dt), emb
 
-    def _write_rows(self, images01, model_norm, batch: int,
-                    start: int) -> None:
-        """Embed `images01` in chunks and write them into table rows
-        [start, start + len), in place.  Allocates the tables at the first
-        chunk when there are none."""
+    def _write_rows(self, images01, model_norm, batch: int, start: int,
+                    desc, emb, rows: int) -> tuple:
+        """Embed `images01` in chunks under `model_norm` and write them
+        into rows [start, start + len) of the tables `desc` and `emb`, in
+        place.  Allocates tables of `rows` rows at the first chunk when
+        `desc` is None.  Returns (desc, emb)."""
         for i in range(0, len(images01), batch):
             d, e = self._embed(self._to_device01(images01[i:i + batch]),
                                model_norm)
-            if self.db_desc is None:
-                m = self.db_poses.shape[0]
-                self.db_desc = torch.zeros((m, d.shape[1]), dtype=d.dtype,
-                                           device=self.device)
-                self.db_emb = torch.zeros((m, e.shape[1]), dtype=e.dtype,
-                                          device=self.device)
-            self.db_desc[start + i:start + i + len(d)] = d
-            self.db_emb[start + i:start + i + len(e)] = e
+            if desc is None:
+                desc = torch.zeros((rows, d.shape[1]), dtype=d.dtype,
+                                   device=self.device)
+                emb = torch.zeros((rows, e.shape[1]), dtype=e.dtype,
+                                  device=self.device)
+            desc[start + i:start + i + len(d)] = d
+            emb[start + i:start + i + len(e)] = e
+        return desc, emb
 
     def build(self, db_images01: np.ndarray, db_poses: np.ndarray,
               model_norm, batch: int = 16) -> None:
@@ -332,11 +350,11 @@ class RelocalizationService:
                 raise ValueError(f"database has {m} frames > capacity {rows}")
         self._built_hw = tuple(np.shape(db_images01)[1:3])
         self._model_norm = model_norm
-        self.db_desc = self.db_emb = None
         self.db_poses = torch.zeros((rows, 6), dtype=torch.float32,
                                     device=self.device)
         self.db_poses[:m] = poses
-        self._write_rows(db_images01, model_norm, batch, 0)
+        self.db_desc, self.db_emb = self._write_rows(
+            db_images01, model_norm, batch, 0, None, None, rows)
         # rows count as valid only once all of them are embedded
         self.db_valid = torch.arange(rows, device=self.device) < m
         self.db_count = m
@@ -370,7 +388,8 @@ class RelocalizationService:
             raise ValueError(
                 f"capacity exceeded: {self.db_count} + {n_new} > {cap}")
         pose_rows = _pose_rows(poses, n_new, "add_frames", self.device)
-        self._write_rows(images01, model_norm, batch, self.db_count)
+        self._write_rows(images01, model_norm, batch, self.db_count,
+                         self.db_desc, self.db_emb, cap)
         self.db_poses[self.db_count:self.db_count + n_new] = pose_rows
         self.db_valid[self.db_count:self.db_count + n_new] = True
         self.db_count += n_new
@@ -507,22 +526,6 @@ class RelocalizationService:
         """Query backbone embeddings [B, 1, D]."""
         return self.model.encode_nodes(query_model_in[:, None])
 
-    def _similarities(self, q_desc: torch.Tensor,
-                      db_desc: torch.Tensor) -> torch.Tensor:
-        """[B, Dv] x [M, Dv] -> float32 [B, M].  The table is in
-        rank_dtype and the query is cast to it; products accumulate in
-        float32 and come out in float32 (a bfloat16 GEMM that rounded its
-        output to bfloat16 would erase the ranking).  On the card that is
-        `mm(..., out_dtype=float32)`, which reads the table as it is
-        stored; the CPU has no such GEMM, so there both operands are
-        widened first, which gives the same products and sums."""
-        q = q_desc.to(db_desc.dtype)
-        if db_desc.dtype == torch.float32:
-            return q @ db_desc.T
-        if db_desc.device.type == "cuda":
-            return torch.mm(q, db_desc.T, out_dtype=torch.float32)
-        return q.float() @ db_desc.float().T
-
     def _select(self, sim: torch.Tensor, db_valid: torch.Tensor,
                 rng: int) -> torch.Tensor:
         """Neighbor selection [B, K] (db_valid masks padding and
@@ -577,7 +580,7 @@ class RelocalizationService:
         else:
             q_emb = None
             q_desc = self.netvlad(self._netvlad_input(query01))
-        sim = self._similarities(q_desc, db_desc)
+        sim = similarities(q_desc, db_desc)
         # 2. neighbor selection
         nbrs = self._select(sim, db_valid, rng)
         # 3. graph assembly from cached embeddings, 4. GNN + pose recovery

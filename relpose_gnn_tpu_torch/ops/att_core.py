@@ -50,33 +50,35 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_kernel_inputs(phi, theta, g) -> None:
+def _check_kernel_inputs(phi, theta, g, what: str = "attention_core") -> None:
+    """Raise on what the row-per-block attention kernels cannot take
+    (`what` names the caller in the message)."""
     for name, a in (("phi", phi), ("theta", theta), ("g", g)):
         if a.device.type != "cuda":
-            raise ValueError(f"attention_core: {name} is on {a.device}; "
+            raise ValueError(f"{what}: {name} is on {a.device}; "
                              "the kernel takes CUDA tensors")
         if a.device != phi.device:
-            raise ValueError("attention_core: inputs on different devices "
+            raise ValueError(f"{what}: inputs on different devices "
                              f"({phi.device} vs {a.device})")
         if a.dtype not in _DTYPE_CODE:
-            raise TypeError(f"attention_core: {name} has dtype {a.dtype}; "
+            raise TypeError(f"{what}: {name} has dtype {a.dtype}; "
                             "the kernel takes float32 or bfloat16")
         if a.dtype != phi.dtype:
-            raise TypeError("attention_core: inputs differ in dtype "
+            raise TypeError(f"{what}: inputs differ in dtype "
                             f"({phi.dtype} vs {a.dtype})")
         if a.dim() != 2 or a.shape != phi.shape:
-            raise ValueError(f"attention_core: {name} has shape "
+            raise ValueError(f"{what}: {name} has shape "
                              f"{tuple(a.shape)}; want [E, C] like phi "
                              f"{tuple(phi.shape)}")
         if not a.is_contiguous():
-            raise ValueError(f"attention_core: {name} is not contiguous")
+            raise ValueError(f"{what}: {name} is not contiguous")
     c = phi.shape[1]
     if not 1 <= c <= _MAX_C:
-        raise ValueError(f"attention_core: C={c} outside [1, {_MAX_C}]")
+        raise ValueError(f"{what}: C={c} outside [1, {_MAX_C}]")
     if torch.is_grad_enabled() and any(
             a.requires_grad for a in (phi, theta, g)):
         raise RuntimeError(
-            "attention_core: the CUDA kernel is inference-only (no "
+            f"{what}: the CUDA kernel is inference-only (no "
             "backward yet); call it under torch.inference_mode() or "
             "torch.no_grad()")
 

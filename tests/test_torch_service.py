@@ -28,7 +28,8 @@ from relpose_gnn_tpu.models.netvlad import NetVLADEncoder as JaxEncoder
 from relpose_gnn_tpu.models.posenet import RelPoseGNN as JaxRelPoseGNN
 from relpose_gnn_tpu.models.posenet import RelPoseGNNConfig as JaxConfig
 from relpose_gnn_tpu_torch.evaluation.service import (RelocalizationService,
-                                                      ServiceConfig)
+                                                      ServiceConfig,
+                                                      similarities)
 from relpose_gnn_tpu_torch.models.convert import (netvlad_state_dict_from_jax,
                                                   state_dict_from_jax)
 from relpose_gnn_tpu_torch.models.netvlad import NetVLADEncoder
@@ -360,8 +361,8 @@ def test_rank_dtype_bfloat16_contract(weights, tmp_path):
     assert bf.db_desc.dtype == torch.bfloat16
     assert torch.equal(bf.db_desc, f32.db_desc.to(torch.bfloat16))
     q_desc = f32.db_desc[:4]
-    s32 = f32._similarities(q_desc, f32.db_desc)
-    sbf = bf._similarities(q_desc, bf.db_desc)
+    s32 = similarities(q_desc, f32.db_desc)
+    sbf = similarities(q_desc, bf.db_desc)
     assert sbf.dtype == torch.float32
     assert 0 < (s32 - sbf).abs().max() < 5e-4
     path = str(tmp_path / "db.npz")

@@ -205,23 +205,35 @@ def _run(code_or_args, env=None, timeout=120):
 
 def test_port_and_chip_smoke_never_import_jax():
     """After importing every module of the port and `chip_smoke`, no
-    module of jax, flax or the JAX package is loaded (the `_torch`
-    package's own name starts like the JAX package's and is excepted)."""
+    module of jax, flax, the JAX package or the repo's top-level
+    `benchmarks` package is loaded (the `_torch` package's own name
+    starts like the JAX package's and is excepted)."""
     proc = _run(["-c", (
         "import importlib, pkgutil, sys\n"
         "import relpose_gnn_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    pkg.__path__, pkg.__name__ + '.')]\n"
-        "assert len(names) >= 25, names\n"
+        "assert len(names) >= 37, names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "def foreign(m):\n"
         "    top = m.split('.')[0]\n"
-        "    return top in ('jax', 'jaxlib', 'flax', 'relpose_gnn_tpu')\n"
+        "    return top in ('jax', 'jaxlib', 'flax', 'relpose_gnn_tpu',\n"
+        "                   'benchmarks', 'bench')\n"
         "bad = sorted(m for m in sys.modules if foreign(m))\n"
         "assert not bad, bad\n"
-        "assert 'relpose_gnn_tpu_torch.evaluation.service' in sys.modules\n"
+        "for tail in ('evaluation.service', 'evaluation.multiscene',\n"
+        "             'ops.att_variants', 'benchmarks._util',\n"
+        "             'benchmarks._synthetic', 'benchmarks.bench_att_core',\n"
+        "             'benchmarks.bench_att_variants',\n"
+        "             'benchmarks.bench_att_variants2',\n"
+        "             'benchmarks.bench_att_exp2',\n"
+        "             'benchmarks.bench_service',\n"
+        "             'benchmarks.bench_service_bisect',\n"
+        "             'benchmarks.bench_retrieval_stages',\n"
+        "             'benchmarks.bench_eval'):\n"
+        "    assert 'relpose_gnn_tpu_torch.' + tail in sys.modules, tail\n"
         "print('clean')\n")])
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
