@@ -9,22 +9,35 @@ is no CPU fallback: without CUDA it exits 1 at once.
 
   device    the card's name; `nvidia-smi` name and power limit; TF32 off
   build     every CUDA kernel in csrc/, compiled side by side (seconds,
-            registers, shared memory, spills)
+            registers, shared memory, spills); the pair MLP's library
+            must hold wgmma, TMA loads and bulk reduce-adds (cuobjdump)
   kernel    each kernel against its plain PyTorch version on the card:
-            attention_core at four shapes, float32 and bfloat16 inputs,
-            rtol = atol = 1e-5; fused_pair_mlp at the four shapes of
-            tests/test_pallas_gnn.py in float32 (rtol 1e-4, atol 1e-3, as
-            the JAX tests hold the TPU kernel) and in bfloat16, and at
-            E = 1024 with every width 2048 in bfloat16, 'edge' and 'msg'
-            (bfloat16: see PAIR_BF16_TOL); every attention-variant form
-            (`ops/att_variants.py`: v1_exp2, v2_mxu, v3_exp2_mxu, base,
-            v1, v2, exp2_core) against its own plain version and against
-            the production kernel at E = 72 with C = 40 and 130, E = 64
-            and 4096 with C = 256, float32 and bfloat16 inputs (see
-            VARIANT_REL_TOL), and `v1 == base` bit for bit
+            attention_core at eleven shapes (C = 1, 4, 128, 130, 256,
+            1000, 1024; E = 1, 7, 4096, 4097), float32 and bfloat16
+            inputs, rtol = atol = 1e-5, also on inputs scaled by 3 and by
+            8 (see KERNEL_TOL for what the float32 ones are held to), and
+            rows of a batch of 4097 against the same rows launched alone
+            and in a smaller batch, bit for bit; fused_pair_mlp at the
+            four shapes of tests/test_pallas_gnn.py in float32 (rtol 1e-4,
+            atol 1e-3, as the JAX tests hold the TPU kernel) and in
+            bfloat16 on both bfloat16 routes ('wgmma' and 'mma_sync', the
+            same inputs), at E = 1024 and E = 16384 with every width 2048,
+            'edge' and 'msg', on both routes, at pair grids of 10, 16, 2
+            and 1 nodes (operand tiles gathered, or copied by TMA through
+            zero-stride views of the node table), at 1000 direct rows with
+            H = 2056 and Dout = 1032 ('edge' and 'msg' operands, ragged
+            against every tile), and at a shape whose widths are no
+            multiples of 8, which must take 'mma_sync' and refuse 'wgmma'
+            (bfloat16: see PAIR_BF16_TOL); launches counted per route;
+            every attention-variant form (`ops/att_variants.py`: v1_exp2,
+            v2_mxu, v3_exp2_mxu, base, v1, v2, exp2_core) against its own
+            plain version and against the production kernel at E = 72 with
+            C = 40 and 130, E = 64 and 4096 with C = 256, float32 and
+            bfloat16 inputs (see VARIANT_REL_TOL), and `v1 == base` bit
+            for bit
   pair_mlp  the bench entry `benchmarks/bench_pair_mlp.py::main` at
             B = 16, N = 8, dims 2048, in process; the pair-MLP kernel's
-            launches counted
+            launches counted, all of them on the 'wgmma' route
   bench     the attention bench entries through their `main`, in process,
             at the JAX benches' shapes (C = 256, float32):
             `bench_att_core` (E = 16384), `bench_att_variants`
@@ -60,9 +73,12 @@ is no CPU fallback: without CUDA it exits 1 at once.
             at `exercise_multiscene`.
   time      CUDA events, median of 20 iterations after warm-up, the forms
             compared in turns within this one run: the attention core
-            (kernel, plain version, and the one library call that computes
-            it, `scaled_dot_product_attention` over one-wide heads) and
-            the R3 cached eval step at batch 128 (kernel vs plain core);
+            (kernel, its earlier form `restructured_core/v1`, `exp2_core`,
+            plain version, and the one library call that computes it,
+            `scaled_dot_product_attention` over one-wide heads), the
+            kernel's time on the device alone (`torch.profiler`), the SM
+            clock under load, and the R3 cached eval step at batch 128
+            (kernel vs plain core);
             every attention-variant kernel at its bench entry's shape and
             inputs against its plain version (VARIANT_REL_TOL, and
             `v1 == base` bit for bit), with the plain version and the
@@ -71,8 +87,10 @@ is no CPU fallback: without CUDA it exits 1 at once.
             query step, scenes in turns; the service's query step at
             batch 128 in both retrieval modes with its stages and a
             `torch.profiler` window (busy and idle share, kernels by
-            time); the pair MLP (kernel, plain, the concat and
-            split-weight library forms) at E = 1024 and 16384
+            time); the pair MLP (kernel on the 'wgmma' route, kernel on
+            the 'mma_sync' route, plain, the concat and split-weight
+            library forms) at E = 1024 and 16384, and the 'wgmma' kernel's
+            time on the device alone
 
 The timing helpers and the seeded models are the package's own
 (`benchmarks/_util.py`, `benchmarks/_synthetic.py`).  The line before the
@@ -88,6 +106,7 @@ import functools
 import json
 import os
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -121,6 +140,23 @@ from relpose_gnn_tpu_torch.ops import _build, att_core, att_variants, pair_mlp
 from relpose_gnn_tpu_torch.retrieval.subsample import fold_in
 
 SEED = 0
+# attention kernel vs plain version.  y is a ratio of two sums of C
+# positive weights 2^(f_j - m).  Kernel and plain version sum in different
+# orders (about sqrt(C) * 2^-24 relative, 1e-6 at C = 256); `ex2.approx`
+# is good to 2 ulp (2.4e-7 per weight); the kernel rounds phi * log2(e)
+# once, which moves a weight by |f_j - m| * 2^-24 relative (1.2e-6 at a
+# distance of 20 from the row max, where the weight is 2e-9 of the
+# largest); its logit is one FMA, exact product included.  Together a few
+# 1e-6 of |y|.  The plain version rounds the product phi * theta to
+# float32 before the max is subtracted: an error of half an ulp of the
+# logit, 2^-24 |f|, which at unit scale (|f| < 30) is 1.8e-6 and is
+# covered, and for bfloat16 inputs is 0 (their products are exact in
+# float32).  For float32 inputs scaled by 3 and 8 the logits reach +-200
+# and +-1500 and that rounding alone moves the plain version by up to
+# 2.4e-4 (measured, E = 4096, scale 8) off the function's value: there the
+# kernel is held, at the same rtol = atol = 1e-5, to the plain version's
+# formula evaluated in float64 on the same float32 inputs, and the plain
+# version's own distance to it is printed beside.
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 # kernel vs plain core inside the whole float32 model: the core agrees to
 # ~1e-6 relative, and the layers after it carry that through
@@ -238,6 +274,40 @@ def profile_step(label: str, fn, step_ms: float, steps: int = 5) -> None:
               f"({us / busy:.1%} of busy)  {short_kernel_name(name)}")
 
 
+def device_ms(fn, kernel: str, calls: int = 10) -> float | None:
+    """Mean time on the device of the kernel whose name contains `kernel`
+    over `calls` calls of fn after warm-up, from `torch.profiler`'s
+    device events: the launch alone, without the wrapper's host time that
+    CUDA events around a single call also span.  None if the profiler
+    recorded no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    return statistics.mean(spans) / 1e3 if spans else None
+
+
+def sm_clock_under_load(fn, launches: int = 1500) -> str | None:
+    """`nvidia-smi`'s SM clock and its maximum, read while `launches`
+    calls of fn are queued on the card."""
+    for _ in range(launches):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    torch.cuda.synchronize()
+    return out[0] if out else None
+
+
 # ---------------------------------------------------------------------------
 # build
 # ---------------------------------------------------------------------------
@@ -264,6 +334,23 @@ def build_kernels() -> None:
               f"{'; '.join(used)}")
     phase("build", f"{len(names)} kernels side by side in "
           f"{time.perf_counter() - t0:.2f} s")
+    # what the pair MLP's 'wgmma' route compiled to
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
+                             "cuobjdump")
+    lib = dict((name, lib) for name, lib, _ in built)["pair_mlp"]
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                          capture_output=True, text=True).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UTMAREDG",
+                                            "SYNCS", "HMMA")}
+    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
+          and counts["UTMAREDG"] > 0,
+          f"pair_mlp.cu compiled without wgmma, TMA loads or bulk "
+          f"reduce-adds: {counts}")
+    phase("build", f"pair_mlp.cu in SASS (cuobjdump): {counts['HGMMA']} "
+          f"HGMMA (wgmma), {counts['UTMALDG']} UTMALDG (TMA tile loads), "
+          f"{counts['UTMAREDG']} UTMAREDG (bulk reduce-adds), "
+          f"{counts['SYNCS']} SYNCS (mbarrier operations), "
+          f"{counts['HMMA']} HMMA (mma.sync, the 'mma_sync' route)")
 
 
 # ---------------------------------------------------------------------------
@@ -292,24 +379,66 @@ def check_library_core(args, want: torch.Tensor, label: str) -> None:
           "relative)")
 
 
+def plain_core_f64(phi, theta, g):
+    """`attention_core_plain`'s formula evaluated in float64 on the same
+    inputs (widened exactly): what the scaled float32 inputs are held to."""
+    phi, theta, g = (a.double() for a in (phi, theta, g))
+    w = torch.softmax(phi[:, :, None] * theta[:, None, :], dim=-1)
+    return torch.einsum("eij,ej->ei", w, g)
+
+
 def check_attention_kernel(dev) -> float:
-    """attention kernel vs plain; returns the largest error."""
+    """attention kernel vs plain (see KERNEL_TOL), at unit scale and on
+    inputs scaled by 3 and 8, and row independence; returns the largest
+    error against the plain version at unit scale."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     worst = 0.0
-    for e, c in ((32, 128), (40, 256), (7, 4), (4096, 256)):
+    shapes = ((32, 128), (40, 256), (7, 4), (4096, 256), (5, 1), (72, 130),
+              (3, 1000), (2, 1024), (1, 256), (4097, 256), (4097, 130))
+    for e, c in shapes:
         for dtype in (torch.float32, torch.bfloat16):
-            args = [torch.randn(e, c, device=dev, generator=gen).to(dtype)
-                    for _ in range(3)]
-            got = att_core.attention_core(*args)
-            want = att_core.attention_core_plain(*args)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            worst = max(worst, err)
-            check(torch.allclose(got, want, **KERNEL_TOL),
-                  f"attention kernel differs from plain at E={e} C={c} "
-                  f"{dtype}: max abs err {err}")
-            phase("kernel", f"attention_core E={e} C={c} "
-                  f"{str(dtype)[6:]}: max abs err {err:.3e}")
+            for scale in (1.0, 3.0, 8.0):
+                args = [(torch.randn(e, c, device=dev, generator=gen)
+                         * scale).to(dtype) for _ in range(3)]
+                got = att_core.attention_core(*args)
+                plain = att_core.attention_core_plain(*args)
+                torch.cuda.synchronize()
+                err = (got - plain).abs().max().item()
+                label = (f"attention_core E={e} C={c} {str(dtype)[6:]} "
+                         f"scale {scale:g}")
+                check(bool(torch.isfinite(got).all()),
+                      f"{label}: not finite")
+                if scale == 1.0 or dtype == torch.bfloat16:
+                    worst = max(worst, err) if scale == 1.0 else worst
+                    check(torch.allclose(got, plain, **KERNEL_TOL),
+                          f"{label}: kernel differs from plain, max abs "
+                          f"err {err}")
+                    phase("kernel", f"{label}: max abs err {err:.3e}")
+                    continue
+                want = plain_core_f64(*args)
+                err64 = (got - want).abs().max().item()
+                check(torch.allclose(got.double(), want, **KERNEL_TOL),
+                      f"{label}: kernel differs from the float64 "
+                      f"evaluation, max abs err {err64}")
+                phase("kernel", f"{label}: max abs err {err64:.3e} against "
+                      f"the float64 evaluation (the float32 plain version "
+                      f"is {(plain - want).abs().max().item():.3e} off it, "
+                      f"the kernel {err:.3e} off the plain version)")
+    # a row's result depends on nothing but that row
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [(torch.randn(4097, 256, device=dev, generator=gen) * 3
+                 ).to(dtype) for _ in range(3)]
+        big = att_core.attention_core(*args)
+        for lo, hi in ((0, 1), (1, 2), (2047, 2048), (4096, 4097), (5, 77),
+                       (1000, 1003)):
+            part = att_core.attention_core(
+                *[a[lo:hi].contiguous() for a in args])
+            check(torch.equal(part, big[lo:hi]),
+                  f"attention kernel: rows {lo}:{hi} of a batch of 4097 "
+                  f"differ from the same rows launched alone ({dtype})")
+        phase("kernel", f"attention_core {str(dtype)[6:]}: rows of a batch "
+              "of 4097 equal the same rows launched alone (1 row at either "
+              "end and inside, 3 rows, 72 rows), bit for bit")
     return worst
 
 
@@ -337,25 +466,38 @@ def pair_mlp_operands(x, e, fc1k, fc1b, fc2k, fc2b, mode, dtype):
 
 
 def check_pair_mlp_kernel(dev) -> float:
-    """fused_pair_mlp vs fused_pair_mlp_plain; returns the largest
-    absolute error over all shapes."""
+    """fused_pair_mlp vs fused_pair_mlp_plain on every route; returns the
+    largest absolute error over all shapes."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     worst = 0.0
+    before = dict(pair_mlp.ROUTE_LAUNCHES)
+    expected = {route: 0 for route in before}
 
-    def compare(label, ops, tol_fn):
+    def compare(label, ops, tol_fn, routes):
         nonlocal worst
-        got = pair_mlp.fused_pair_mlp(**ops)
         want = pair_mlp.fused_pair_mlp_plain(**ops)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
         scale = want.abs().max().item()
-        worst = max(worst, err)
-        check(bool(torch.isfinite(got).all()) and tol_fn(got, want, err,
-                                                         scale),
-              f"pair-MLP kernel differs from plain at {label}: max abs "
-              f"err {err} (max |out| {scale})")
-        phase("kernel", f"fused_pair_mlp {label}: max abs err {err:.3e} "
-              f"(max |out| {scale:.3e})")
+        d, h = ops["w1a"].shape
+        picked = pair_mlp.kernel_route(ops["w1a"].dtype, d,
+                                       ops["e"].shape[1], h,
+                                       ops["w2"].shape[1])
+        check(picked == routes[0], f"{label}: kernel_route picks {picked}, "
+              f"expected {routes[0]}")
+        for route in routes:
+            # the first route is the one the shape selects: ask for it by
+            # shape (route=None), for the others by name
+            got = pair_mlp.fused_pair_mlp(
+                **ops, route=None if route == routes[0] else route)
+            torch.cuda.synchronize()
+            expected[route] += 1
+            err = (got - want).abs().max().item()
+            worst = max(worst, err)
+            check(bool(torch.isfinite(got).all())
+                  and tol_fn(got, want, err, scale),
+                  f"pair-MLP kernel ({route}) differs from plain at "
+                  f"{label}: max abs err {err} (max |out| {scale})")
+            phase("kernel", f"fused_pair_mlp {label} [{route}]: max abs err "
+                  f"{err:.3e} (max |out| {scale:.3e})")
 
     def f32_ok(got, want, err, scale):
         return torch.allclose(got, want, **PAIR_F32_TOL)
@@ -363,37 +505,92 @@ def check_pair_mlp_kernel(dev) -> float:
     def bf16_ok(got, want, err, scale):
         return err <= PAIR_BF16_TOL * scale
 
+    def direct(e_rows, d, de, h, dout, dtype, xt=True, unit=False):
+        """xs, xt, e [E, .] read row by row (nodes = 0); weights of
+        N(0, 0.1^2), or scaled to keep the sums near 1 (`unit`)."""
+        r = [torch.randn(*s, device=dev, generator=gen) for s in (
+            (e_rows, d), (e_rows, d), (e_rows, de), (d, h), (d, h),
+            (de, h), (h,), (h, dout), (dout,))]
+        ops = dict(zip(("xs", "xt", "e", "w1a", "w1b", "w1c", "b1", "w2",
+                        "b2"), r))
+        for key in ("xs", "xt", "e"):
+            ops[key] = ops[key].to(dtype)
+        for key in ("w1a", "w1b", "w1c"):
+            ops[key] = (ops[key] * ((2 * d + de) ** -0.5 if unit else 0.1)
+                        ).to(dtype)
+        ops["w2"] = (ops["w2"] * (h ** -0.5 if unit else 0.1)).to(dtype)
+        if not xt:
+            ops["xt"] = ops["w1b"] = None
+        return ops
+
     # the four shapes of tests/test_pallas_gnn.py: two direct, two through
     # the pair grid (E = 72 with H = 40 is ragged against every tile), in
-    # float32 (the FMA kernel) and in bfloat16 (the tensor-core kernel)
-    for dtype, ok in ((torch.float32, f32_ok), (torch.bfloat16, bf16_ok)):
+    # float32 (the FMA kernel) and in bfloat16 (widths all multiples of 8:
+    # the wgmma kernel by shape, the mma.sync kernel by name)
+    both = ("wgmma", "mma_sync")
+    for dtype, ok, routes in ((torch.float32, f32_ok, ("fma",)),
+                              (torch.bfloat16, bf16_ok, both)):
         name = str(dtype)[6:]
         for e_rows, d, de, h, dout in ((256, 32, 16, 512, 64),
                                        (128, 16, 16, 1024, 32)):
-            r = [torch.randn(*s, device=dev, generator=gen) for s in (
-                (e_rows, d), (e_rows, d), (e_rows, de), (d, h), (d, h),
-                (de, h), (h,), (h, dout), (dout,))]
-            ops = dict(zip(("xs", "xt", "e", "w1a", "w1b", "w1c", "b1",
-                            "w2", "b2"), r))
-            for key in ("xs", "xt", "e"):
-                ops[key] = ops[key].to(dtype)
-            for key in ("w1a", "w1b", "w1c", "w2"):
-                ops[key] = (ops[key] * 0.1).to(dtype)
             compare(f"E={e_rows} D={d} De={de} H={h} Dout={dout} {name}",
-                    ops, ok)
+                    direct(e_rows, d, de, h, dout, dtype), ok, routes)
         for b, n, d, de, h, dout, mode in ((2, 6, 24, 8, 40, 8, "edge"),
                                            (1, 4, 16, 16, 32, 16, "msg")):
             args = pair_mlp_inputs(dev, gen, b, n, d, de, h, dout, mode,
                                    dtype)
             compare(f"{mode} B={b} N={n} D={d} De={de} H={h} Dout={dout} "
-                    f"{name}", pair_mlp_operands(*args, mode, dtype), ok)
-    # the bench shape in bfloat16, both modes
-    for mode in ("edge", "msg"):
-        args = pair_mlp_inputs(dev, gen, 16, 8, 2048, 2048, 2048, 2048,
-                               mode, torch.bfloat16)
-        compare(f"{mode} E=1024 D=De=H=Dout=2048 bfloat16 (max err <= "
-                f"{PAIR_BF16_TOL} max |out|)",
-                pair_mlp_operands(*args, mode, torch.bfloat16), bf16_ok)
+                    f"{name}", pair_mlp_operands(*args, mode, dtype), ok,
+                    routes)
+    bf = torch.bfloat16
+    # the bench shapes in bfloat16, both modes, both routes
+    for n in (8, 32):
+        for mode in ("edge", "msg"):
+            args = pair_mlp_inputs(dev, gen, 16, n, 2048, 2048, 2048, 2048,
+                                   mode, bf)
+            compare(f"{mode} E={16 * n * n} D=De=H=Dout=2048 bfloat16 (max "
+                    f"err <= {PAIR_BF16_TOL} max |out|)",
+                    pair_mlp_operands(*args, mode, bf), bf16_ok, both)
+    # other node counts: the operand tiles of the 'wgmma' route are boxes
+    # of a zero-stride view of the node table when N is a power of two up
+    # to 128 (N = 16: a block is part of one graph; N = 2 and 1: many
+    # whole graphs), and are gathered by the producer's threads otherwise
+    # (N = 10, E = 800: ragged against the 128-row block too)
+    for b, n, d, de, h, dout, mode in (
+            (8, 10, 2048, 2048, 2048, 2048, "edge"),
+            (8, 10, 2048, 2048, 2048, 2048, "msg"),
+            (16, 16, 512, 256, 512, 256, "edge"),
+            (40, 2, 64, 32, 136, 72, "edge"),
+            (130, 1, 64, 32, 136, 72, "edge")):
+        args = pair_mlp_inputs(dev, gen, b, n, d, de, h, dout, mode, bf)
+        compare(f"{mode} B={b} N={n} (E={b * n * n}) D={d} De={de} H={h} "
+                f"Dout={dout} bfloat16", pair_mlp_operands(*args, mode, bf),
+                bf16_ok, both)
+    # ragged against the 128-row block, the hidden tile and the output
+    # chunk, widths still multiples of 8: the tensor maps clip and fill
+    for xt in (True, False):
+        compare(f"{'edge' if xt else 'msg'} operands, 1000 direct rows, "
+                "D=De=2048 H=2056 Dout=1032 bfloat16",
+                direct(1000, 2048, 2048, 2056, 1032, bf, xt, unit=True),
+                bf16_ok, both)
+    # widths that are no multiples of 8: the mma.sync kernel's, by shape
+    odd = direct(72, 20, 12, 36, 10, bf)
+    compare("E=72 D=20 De=12 H=36 Dout=10 bfloat16", odd, bf16_ok,
+            ("mma_sync",))
+    try:
+        pair_mlp.fused_pair_mlp(**odd, route="wgmma")
+    except ValueError as exc:
+        phase("kernel", f"fused_pair_mlp refuses route 'wgmma' there: {exc}")
+    else:
+        check(False, "route 'wgmma' was not refused at widths that are no "
+              "multiples of 8")
+    counted = {route: pair_mlp.ROUTE_LAUNCHES[route] - before[route]
+               for route in before}
+    check(counted == expected and min(expected.values()) > 0
+          and sum(pair_mlp.ROUTE_LAUNCHES.values()) == pair_mlp.LAUNCHES,
+          f"pair-MLP launches per route {counted}, expected {expected}")
+    phase("kernel", f"fused_pair_mlp launches per route in this phase: "
+          f"{counted}")
     return worst
 
 
@@ -429,8 +626,10 @@ VARIANT_BENCH_E = {"bench_att_variants.main": 32768,
 
 def check_variant_kernels(dev) -> dict:
     """Every attention-variant kernel against its own plain version and
-    against the production kernel, float32 and bfloat16 inputs, at ragged
-    shapes too; `v1` against `base` bit for bit.  Returns the largest
+    against the production kernel (VARIANT_REL_TOL: that kernel builds its
+    logits with one FMA in the exp2 domain, so no form equals it bit for
+    bit), float32 and bfloat16 inputs, at ragged shapes too; `v1` against
+    `base` bit for bit.  Returns the largest
     absolute error of each form against its plain version.
 
     Tolerance VARIANT_REL_TOL, relative to max |y|: see its derivation."""
@@ -462,15 +661,11 @@ def check_variant_kernels(dev) -> dict:
                               outs["restructured_core/base"]),
                   f"v1 differs from base at E={e} C={c} {dtype}: analytic "
                   "and scanned row max must agree bit for bit")
-            check(torch.equal(outs["restructured_core/v1"], k1),
-                  f"v1 differs from the production kernel at E={e} C={c} "
-                  f"{dtype}: both are the analytic one-pass form")
             phase("kernel", f"attention variants E={e} C={c} "
                   f"{str(dtype)[6:]}: {len(outs)} forms within "
                   f"{max(rels):.2e} of their plain versions and of the "
                   f"production kernel (relative to max |y|, tolerance "
-                  f"{VARIANT_REL_TOL}); v1 == base == production kernel "
-                  "bit for bit")
+                  f"{VARIANT_REL_TOL}); v1 == base bit for bit")
     return worst
 
 
@@ -483,20 +678,24 @@ def run_pair_mlp_bench() -> int:
     """Drives `bench_pair_mlp.main` in process; returns the pair-MLP
     kernel's launches on that path."""
     pair_mlp.LAUNCHES = 0
+    before = pair_mlp.ROUTE_LAUNCHES["wgmma"]
     out = bench_pair_mlp.main(["--batch", "16", "--nodes", "8", "--dims",
                                "2048", "--iters", str(ITERS)])
     torch.cuda.synchronize()
     launches = pair_mlp.LAUNCHES
-    check(launches == out["kernel_calls"] and launches > 0,
-          f"pair-MLP kernel launched {launches} times by the bench entry, "
-          f"expected {out['kernel_calls']}")
+    check(launches == out["kernel_calls"] and launches > 0
+          and pair_mlp.ROUTE_LAUNCHES["wgmma"] - before == launches,
+          f"pair-MLP kernel launched {launches} times by the bench entry "
+          f"({pair_mlp.ROUTE_LAUNCHES['wgmma'] - before} on the 'wgmma' "
+          f"route), expected {out['kernel_calls']}, all on 'wgmma'")
     # the concat form rounds its output to bfloat16: 2^-9 relative at most
     check(out["rel_max_diff"] < 2 ** -8,
           f"bench: kernel vs concat form differ by {out['rel_max_diff']}")
     phase("pair_mlp", f"bench entry B=16 N=8 dims 2048: kernel "
           f"{out['ms']['kernel']} ms, concat {out['ms']['concat']} ms, "
           f"split-weight {out['ms']['split']} ms; rel max diff vs concat "
-          f"{out['rel_max_diff']:.3e}; kernel launches {launches}")
+          f"{out['rel_max_diff']:.3e}; kernel launches {launches}, all on "
+          "the 'wgmma' route")
     return launches
 
 
@@ -1120,11 +1319,13 @@ def run_service_benches() -> None:
 
 
 def time_cached_eval(dev, model: RelPoseGNN, card: str) -> dict:
-    """Attention core (kernel, plain version and the library call, in
-    turns) and the R3 cached eval step.  Returns the core's record at the
-    main path's shape (E = 32 x batch 128, C = 256, bf16)."""
+    """Attention core (kernel, its earlier form `v1`, `exp2_core`, plain
+    version and the library call, in turns; the kernel's and `v1`'s time
+    on the device alone) and the R3 cached eval step.  Returns the core's
+    record at the main path's shape (E = 32 x batch 128, C = 256, bf16)."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     core = {}
+    v1 = functools.partial(att_variants.restructured_core, "v1")
     for e in (4096, 16384):
         for dtype in (torch.bfloat16, torch.float32):
             args = [torch.randn(e, 256, device=dev, generator=gen).to(dtype)
@@ -1133,20 +1334,38 @@ def time_cached_eval(dev, model: RelPoseGNN, card: str) -> dict:
                                f"E={e} C=256 {dtype}")
             ms = in_turns({
                 "kernel": lambda: att_core.attention_core(*args),
+                "v1": lambda: v1(*args),
+                "exp2_core": lambda: att_variants.exp2_core(*args),
                 "plain": lambda: att_core.attention_core_plain(*args),
                 "library": lambda: library_core(*args)})
+            ms["kernel_device"] = device_ms(
+                lambda: att_core.attention_core(*args), "att_core_kernel")
+            ms["v1_device"] = device_ms(lambda: v1(*args),
+                                        "att_variant_kernel")
+            check(ms["kernel"] < ms["v1"],
+                  f"attention kernel ({ms['kernel']} ms) is not faster "
+                  f"than its earlier form v1 ({ms['v1']} ms) at E={e} "
+                  f"{dtype}")
             core[(e, dtype)] = ms
             phase("time", f"attention_core E={e} C=256 {str(dtype)[6:]}, in "
-                  f"turns: kernel {ms['kernel']} ms, plain {ms['plain']} "
-                  f"ms, library (scaled_dot_product_attention, head width "
-                  f"1) {ms['library']} ms ({card})")
+                  f"turns: kernel {ms['kernel']} ms, restructured_core/v1 "
+                  f"(its earlier form) {ms['v1']} ms, exp2_core "
+                  f"{ms['exp2_core']} ms, plain {ms['plain']} ms, library "
+                  f"(scaled_dot_product_attention, head width 1) "
+                  f"{ms['library']} ms; on the device alone (profiler): "
+                  f"kernel {ms['kernel_device']} ms, v1 {ms['v1_device']} "
+                  f"ms ({card})")
     e, c = 4096, 256
     bound = _util.bound_ms(att_variants.core_work(e, c, 2, None))
     phase("time", f"attention_core E={e} C={c} bf16 bound: "
           f"{bound['bound_ms']} ms by {bound['bound_by']} (ms by part: "
           f"{bound['parts']}; 3 inputs once and the output once at 3.35 "
           f"TB/s, E*C^2 exponentials at an estimated {_util.PEAK_EXP:.3e} "
-          "exp/s, 5 float32 operations per logit at 67 TFLOP/s)")
+          "exp/s = 16 a clock x 132 SMs x 1.98 GHz, 5 float32 operations "
+          "per logit at 67 TFLOP/s)")
+    phase("time", "SM clock while the attention kernel runs, and its "
+          f"maximum (nvidia-smi clocks.sm, clocks.max.sm): "
+          f"{sm_clock_under_load(lambda: att_core.attention_core(*args))}")
 
     rng = np.random.default_rng(SEED + 1)
     normalize = make_normalizer(MEAN, STD, dev)
@@ -1178,7 +1397,9 @@ def time_cached_eval(dev, model: RelPoseGNN, card: str) -> dict:
     main_path = core[(4096, torch.bfloat16)]
     return {"ms": main_path["kernel"], "plain_ms": main_path["plain"],
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "library_ms": main_path["library"]}
+            "library_ms": main_path["library"],
+            "device_ms": main_path["kernel_device"],
+            "v1_ms": main_path["v1"], "exp2_core_ms": main_path["exp2_core"]}
 
 
 def time_variants(dev, card: str, bench_ms: dict) -> tuple:
@@ -1340,11 +1561,13 @@ def time_service(dev, svc: RelocalizationService, queries: np.ndarray,
 
 
 def time_pair_mlp(dev, card: str) -> dict:
-    """Kernel, plain version and the two library forms at E = 1024 and
-    E = 16384 (B = 16, N = 8 and 32, every width 2048, bfloat16).
-    Returns the record at the bench entry's shape, E = 1024."""
+    """Kernel on both bfloat16 routes, plain version and the two library
+    forms, in turns, at E = 1024 and E = 16384 (B = 16, N = 8 and 32,
+    every width 2048, bfloat16); the 'wgmma' kernel's time on the device
+    alone.  Returns the record at the bench entry's shape, E = 1024."""
     record = {}
     dt = torch.bfloat16
+    before = dict(pair_mlp.ROUTE_LAUNCHES)
     for n in (8, 32):
         gen = torch.Generator(device=dev).manual_seed(SEED + n)
         x, e, fc1k, fc1b, fc2k, fc2b = pair_mlp_inputs(
@@ -1355,21 +1578,35 @@ def time_pair_mlp(dev, card: str) -> dict:
         with torch.inference_mode():
             ms = in_turns({
                 "kernel": lambda: pair_mlp.fused_pair_mlp(**ops),
+                "mma_sync": lambda: pair_mlp.fused_pair_mlp(
+                    **ops, route="mma_sync"),
                 "plain": lambda: pair_mlp.fused_pair_mlp_plain(**ops),
                 "concat": lambda: bench_pair_mlp.concat_form(
                     x, e, fc1w, fc1b, fc2w, fc2b),
                 "split": lambda: bench_pair_mlp.split_form(
                     x, e, fc1w, fc1b, fc2w, fc2b),
             }, iters=ITERS if n == 8 else 8)
+            on_device = device_ms(lambda: pair_mlp.fused_pair_mlp(**ops),
+                                  "pair_mlp_wgmma_kernel")
+            memset = device_ms(lambda: pair_mlp.fused_pair_mlp(**ops),
+                               "Memset")
+        check(ms["kernel"] < ms["mma_sync"],
+              f"pair MLP at E={rows}: the 'wgmma' route ({ms['kernel']} ms) "
+              f"is not faster than 'mma_sync' ({ms['mma_sync']} ms)")
         flops = 2 * rows * 2048 * (2 * d + 2048 + 2048)
         moved = sum(t.numel() * t.element_size() for t in (
             ops["xs"], ops["e"], fc1k, fc1b, fc2k, fc2b)) + rows * 2048 * 4
         parts = _util.bound_ms({"bytes": moved, "bf16_ops": flops})
         bound, by = parts["bound_ms"], parts["bound_by"]
         flop_ms, bytes_ms = parts["parts"]["bf16"], parts["parts"]["bytes"]
-        phase("time", f"fused_pair_mlp E={rows} D=De=H=Dout=2048 bf16: "
-              f"kernel {ms['kernel']} ms ({flops / ms['kernel'] / 1e9} "
-              f"TFLOP/s), plain {ms['plain']} ms, library concat "
+        phase("time", f"fused_pair_mlp E={rows} D=De=H=Dout=2048 bf16, in "
+              f"turns: kernel ('wgmma' route) {ms['kernel']} ms "
+              f"({flops / ms['kernel'] / 1e9} TFLOP/s; on the device alone "
+              f"{on_device} ms, and the memset of out before it {memset} "
+              f"ms), 'mma_sync' "
+              f"route {ms['mma_sync']} ms "
+              f"({flops / ms['mma_sync'] / 1e9} TFLOP/s), plain "
+              f"{ms['plain']} ms, library concat "
               f"{ms['concat']} ms, library split-weight {ms['split']} ms; "
               f"bound {bound} ms by {by} ({flops / 1e9} GFLOP at 989 "
               f"TFLOP/s = {flop_ms} ms; {moved / 1e6} MB at 3.35 TB/s = "
@@ -1378,7 +1615,14 @@ def time_pair_mlp(dev, card: str) -> dict:
             record = {"ms": ms["kernel"], "plain_ms": ms["plain"],
                       "bound_ms": bound, "bound_by": by,
                       "library_ms": ms["concat"],
-                      "library_split_ms": ms["split"]}
+                      "library_split_ms": ms["split"],
+                      "mma_sync_ms": ms["mma_sync"],
+                      "device_ms": on_device}
+    timed = {route: pair_mlp.ROUTE_LAUNCHES[route] - before[route]
+             for route in before}
+    check(timed["wgmma"] > 0 and timed["mma_sync"] > 0 and timed["fma"] == 0,
+          f"time_pair_mlp launched {timed}")
+    phase("time", f"fused_pair_mlp launches per route while timing: {timed}")
     return record
 
 
@@ -1387,6 +1631,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1429,6 +1674,8 @@ def main() -> int:
         time_service(dev, svc, queries, card)
     time_multiscene(dev, multi, multi_queries, card)
     pair_times = time_pair_mlp(dev, card)
+    phase("done", f"every phase passed in {time.perf_counter() - t_start:.1f}"
+          " s, the kernels' build included")
 
     print(json.dumps({"kernels": [
         {"name": "attention_core", "route": "cuda",
@@ -1442,6 +1689,9 @@ def main() -> int:
          "replaces": "relpose_gnn_tpu/ops/gnn_pallas.py:57",
          "launches": pair_launches,
          "launches_by_path": {"bench_pair_mlp.main": pair_launches},
+         "route_launches": {
+             "main_path": {"wgmma": pair_launches, "mma_sync": 0, "fma": 0},
+             "whole_run": dict(pair_mlp.ROUTE_LAUNCHES)},
          "max_abs_err": pair_err, **pair_times},
         *({"name": key, "route": "cuda",
            "source": "relpose_gnn_tpu_torch/csrc/att_variants.cu",

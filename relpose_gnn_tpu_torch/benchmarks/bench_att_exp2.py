@@ -11,8 +11,12 @@ and call exp2 on the grid.  The row max computed from the scaled products
 is the scaled max (log2(e) > 0), so the softmax is as stable as before.
 
 The exp2 form is `ops/att_variants.py::exp2_core` (kernel in
-`csrc/att_variants.cu`); the exp form is the production kernel
-`ops/att_core.py::attention_core`.  Correctness first, on 64 rows: both
+`csrc/att_variants.cu`): the probe of the exp2 prescale alone, in the
+layout of the first production kernel.  Beside it runs the production
+kernel `ops/att_core.py::attention_core`, which has since taken the exp2
+domain over together with a fused logit, raw `ex2.approx` and several
+chains a thread (the exp form it once was is `restructured_core` 'v1',
+timed by `bench_att_variants2`).  Correctness first, on 64 rows: both
 kernels against the plain core and against each other, relative to
 max |y|; the exp2 kernel must be within 1e-5.  Then the two are timed in
 turns (CUDA events, median of `--iters` after warm-up).  One JSON line at
@@ -58,7 +62,7 @@ def main(argv=None) -> dict:
     err_exp = float((got_exp - ref).abs().max()) / scale
     err = float((got - ref).abs().max()) / scale
     kk_err = float((got - got_exp).abs().max()) / scale
-    print(f"rel err vs plain  exp: {err_exp:.2e}  exp2: {err:.2e}  "
+    print(f"rel err vs plain  production: {err_exp:.2e}  exp2: {err:.2e}  "
           f"kernel-vs-kernel: {kk_err:.2e}", flush=True)
     if not err < REL_TOL:
         raise AssertionError(f"exp2 kernel off the plain core by {err}")
@@ -72,7 +76,7 @@ def main(argv=None) -> dict:
         print(f"E={e} C={c}", flush=True)
         ms = time_forms({"exp2": att_variants.exp2_core}, a, args.iters,
                         device)
-        print(f"exp: {ms['v0']:7.3f} ms   exp2(prescaled): "
+        print(f"production: {ms['v0']:7.3f} ms   exp2(prescaled): "
               f"{ms['exp2']:7.3f} ms   ratio "
               f"{ms['v0'] / ms['exp2']:.3f}x", flush=True)
         record["ms"] = ms

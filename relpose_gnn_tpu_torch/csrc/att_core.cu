@@ -6,30 +6,59 @@
 // (reached through attention_core).  It computes the same function; it does
 // not copy the TPU tiling, which keeps [T, C, C] logits in VMEM.
 //
-// What bounds it: the E * C^2 expf calls.  The inputs and the output are
-// only 4 * E * C words, so the kernel is bound by operations (the SFU exp
-// pipe and the FMA pipe), not by bytes.  The design therefore never writes
-// the [E, C, C] logits anywhere, not even to shared memory: one block owns
-// one row e, stages theta[e] and g[e] in shared memory (every thread of a
-// warp reads the same element, a broadcast), and each thread keeps its own
-// row of logits in registers, one at a time.
+// What bounds it: the E * C^2 exponentials.  The inputs and the output are
+// only 4 * E * C words, so the kernel is bound by operations, and of those
+// by the special-function pipe: an SM computes 16 exponentials a clock, so
+// a warp's `ex2` holds the pipe of its scheduler for 8 clocks, in which
+// that scheduler can issue 8 instructions.  A loop that spends more than 8
+// issue slots per logit is bound by instruction issue instead, and the
+// first form of this kernel spent about 18 (two broadcast shared loads, a
+// rounded product, a subtraction, `expf`'s range reduction around
+// `ex2.approx`, an add and an FMA, in one serial chain per thread).  The
+// design brings the loop to 4 issue slots per logit plus one shared load
+// per 2 * kChains logits:
 //
-// The row max is analytic: max_j fl(phi_i * theta_j) is fl(phi_i * max theta)
-// when phi_i >= 0 and fl(phi_i * min theta) otherwise, because rounding is
-// monotone.  It is therefore bit-exact with the plain max, and each thread
-// makes a single pass over j (exp, row sum, weighted sum).  __fmul_rn keeps
-// the compiler from contracting the product into an FMA, so the logits
-// are the rounded products the plain version computes.  expf (not __expf)
-// keeps the result within 1e-5 of the plain version.
+//   * exp2 domain: p2 = phi * log2(e) once per output, so the weight is
+//     2^(p2 * theta_j - m2) and needs no scaling inside the loop;
+//   * the logit is one FMA, f = fma(p2, theta_j, -m2), with the analytic
+//     row max m2 = max(p2 * max theta, p2 * min theta) (rounding is
+//     monotone, so no second pass over j).  f can exceed 0 by half an ulp
+//     of m2 where the product rounds down; the weight is then 1 + eps,
+//     which is as right as 1;
+//   * raw `ex2.approx.ftz.f32` (2 ulp): f <= ~0, so nothing overflows, and
+//     a weight that flushes to 0 beside the row's largest weight of 1 is
+//     the right answer;
+//   * theta and g are interleaved in shared memory and read 16 bytes at a
+//     time (two (theta, g) pairs a load, the same address in every lane: a
+//     broadcast), and a thread owns kChains outputs of its row (i, i + T,
+//     ...), so that every loaded pair feeds kChains independent (z, acc)
+//     chains, which also hide the accumulation latency;
+//   * a block holds several rows when a row needs few threads (four rows
+//     of 64 threads at C = 256), so that blocks stay 256 threads wide.
+//
+// The [E, C, C] logits are never written anywhere, not even to shared
+// memory.  A row's result depends on nothing but that row: each output is
+// one thread's sequential sum over j = 0 .. C-1, whatever E, the row's
+// place in its block or the number of chains; there are no atomics.
+// Against the plain version the arithmetic differs by one rounding of
+// phi * log2(e) (relative 2^-24 on the logit's distance to the row max),
+// the exact product inside the FMA (the plain version rounds phi * theta)
+// and `ex2.approx`.
 //
 // Inputs are float32 or bfloat16 (converted to float32 on load); the output
-// is float32.  Any 1 <= C <= 1024 and any E >= 0; no padding is needed.
+// is float32.  Any 1 <= C <= 1024 and any E >= 0; nothing is padded: a
+// column past C is never read, an odd last column is a step of its own.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
+
+constexpr int kBlockThreads = 256;   // at most; a multiple of 32
+constexpr int kMaxRowWarps = 8;      // a row has at most 256 threads
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kChains = 4;           // outputs (independent chains) a thread
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -42,6 +71,12 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ void warp_max_min(float& mx, float& mn) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -50,65 +85,113 @@ __device__ __forceinline__ void warp_max_min(float& mx, float& mn) {
   }
 }
 
-// One block per row; blockDim.x = C rounded up to a multiple of 32.
-// Dynamic shared memory: theta[C] then g[C], as float32.
+// A block holds `rows_per_block` rows of `row_threads` threads (a multiple
+// of 32, so no warp straddles two rows); thread t of a row owns outputs
+// t, t + row_threads, ..., kChains of them.  Dynamic shared memory: per
+// row `c_pad` (theta, g) pairs (c_pad even: 16-byte rows), then the rows'
+// per-warp maxima and minima.
 template <typename T>
-__global__ void att_core_kernel(const T* __restrict__ phi,
-                                const T* __restrict__ theta,
-                                const T* __restrict__ g,
-                                float* __restrict__ y, int c) {
-  extern __shared__ float smem[];
-  __shared__ float red_max[32];
-  __shared__ float red_min[32];
-  float* s_theta = smem;
-  float* s_g = smem + c;
+__global__ void __launch_bounds__(kBlockThreads)
+att_core_kernel(const T* __restrict__ phi, const T* __restrict__ theta,
+                const T* __restrict__ g, float* __restrict__ y, int e, int c,
+                int row_threads, int rows_per_block, int c_pad) {
+  extern __shared__ float4 smem4[];
+  float2* s_tg = reinterpret_cast<float2*>(smem4);
+  float* red_max = reinterpret_cast<float*>(s_tg + rows_per_block * c_pad);
+  float* red_min = red_max + rows_per_block * kMaxRowWarps;
 
-  const long long base = static_cast<long long>(blockIdx.x) * c;
-  const int i = threadIdx.x;
-  const int lane = i & 31;
-  const int warp = i >> 5;
-  const int n_warps = blockDim.x >> 5;
+  const int rib = threadIdx.x / row_threads;          // row in block
+  const int t = threadIdx.x - rib * row_threads;      // thread in row
+  const long long row =
+      static_cast<long long>(blockIdx.x) * rows_per_block + rib;
+  const bool row_ok = row < e;
+  const long long base = row * c;
+  float2* s_row = s_tg + rib * c_pad;
 
-  float p = 0.f;
+  float p2[kChains];
   float tmax = -INFINITY;
   float tmin = INFINITY;
-  if (i < c) {
-    const float t = to_f32(theta[base + i]);
-    s_theta[i] = t;
-    s_g[i] = to_f32(g[base + i]);
-    p = to_f32(phi[base + i]);
-    tmax = t;
-    tmin = t;
-  }
-  warp_max_min(tmax, tmin);
-  if (lane == 0) {
-    red_max[warp] = tmax;
-    red_min[warp] = tmin;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    tmax = lane < n_warps ? red_max[lane] : -INFINITY;
-    tmin = lane < n_warps ? red_min[lane] : INFINITY;
-    warp_max_min(tmax, tmin);
-    if (lane == 0) {
-      red_max[0] = tmax;
-      red_min[0] = tmin;
+#pragma unroll
+  for (int r = 0; r < kChains; ++r) {
+    const int i = t + r * row_threads;
+    p2[r] = 0.f;
+    if (row_ok && i < c) {
+      const float th = to_f32(theta[base + i]);
+      s_row[i] = make_float2(th, to_f32(g[base + i]));
+      p2[r] = to_f32(phi[base + i]) * kLog2e;
+      tmax = fmaxf(tmax, th);
+      tmin = fminf(tmin, th);
     }
   }
-  __syncthreads();
-  if (i >= c) return;
-  tmax = red_max[0];
-  tmin = red_min[0];
-
-  const float m = fmaxf(__fmul_rn(p, tmax), __fmul_rn(p, tmin));
-  float z = 0.f;
-  float acc = 0.f;
-  for (int j = 0; j < c; ++j) {
-    const float w = expf(__fmul_rn(p, s_theta[j]) - m);
-    z += w;
-    acc = fmaf(w, s_g[j], acc);
+  warp_max_min(tmax, tmin);
+  if ((t & 31) == 0) {
+    red_max[rib * kMaxRowWarps + (t >> 5)] = tmax;
+    red_min[rib * kMaxRowWarps + (t >> 5)] = tmin;
   }
-  y[base + i] = acc / z;
+  __syncthreads();
+  if (!row_ok || t >= c) return;
+  for (int w = 0; w < (row_threads >> 5); ++w) {
+    tmax = fmaxf(tmax, red_max[rib * kMaxRowWarps + w]);
+    tmin = fminf(tmin, red_min[rib * kMaxRowWarps + w]);
+  }
+
+  // a chain past C runs on p2 = 0 (weights of 1) and is not stored
+  float neg_m2[kChains];
+  float z[kChains];
+  float acc[kChains];
+#pragma unroll
+  for (int r = 0; r < kChains; ++r) {
+    neg_m2[r] = -fmaxf(p2[r] * tmax, p2[r] * tmin);
+    z[r] = 0.f;
+    acc[r] = 0.f;
+  }
+  const float4* s_pairs = reinterpret_cast<const float4*>(s_row);
+  const int pairs = c >> 1;
+#pragma unroll 2
+  for (int j = 0; j < pairs; ++j) {
+    const float4 v = s_pairs[j];   // theta_2j, g_2j, theta_2j+1, g_2j+1
+#pragma unroll
+    for (int r = 0; r < kChains; ++r) {
+      const float w0 = ex2_approx(fmaf(p2[r], v.x, neg_m2[r]));
+      z[r] += w0;
+      acc[r] = fmaf(w0, v.y, acc[r]);
+      const float w1 = ex2_approx(fmaf(p2[r], v.z, neg_m2[r]));
+      z[r] += w1;
+      acc[r] = fmaf(w1, v.w, acc[r]);
+    }
+  }
+  if (c & 1) {
+    const float2 v = s_row[c - 1];
+#pragma unroll
+    for (int r = 0; r < kChains; ++r) {
+      const float w0 = ex2_approx(fmaf(p2[r], v.x, neg_m2[r]));
+      z[r] += w0;
+      acc[r] = fmaf(w0, v.y, acc[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kChains; ++r) {
+    const int i = t + r * row_threads;
+    if (i < c) y[base + i] = acc[r] / z[r];
+  }
+}
+
+template <typename T>
+void launch(const void* phi, const void* theta, const void* g, void* y,
+            int e, int c, cudaStream_t s) {
+  const int per_thread = (c + kChains - 1) / kChains;
+  const int row_threads = (per_thread + 31) / 32 * 32;
+  const int rows_per_block = kBlockThreads / row_threads;
+  const int c_pad = (c + 1) & ~1;
+  const dim3 grid((e + rows_per_block - 1) / rows_per_block);
+  const dim3 block(rows_per_block * row_threads);
+  const size_t smem =
+      static_cast<size_t>(rows_per_block) *
+      (c_pad * sizeof(float2) + 2 * kMaxRowWarps * sizeof(float));
+  att_core_kernel<T><<<grid, block, smem, s>>>(
+      static_cast<const T*>(phi), static_cast<const T*>(theta),
+      static_cast<const T*>(g), static_cast<float*>(y), e, c, row_threads,
+      rows_per_block, c_pad);
 }
 
 }  // namespace
@@ -121,19 +204,11 @@ int att_core_forward(const void* phi, const void* theta, const void* g,
                      void* y, int e, int c, int dtype, void* stream) {
   if (e < 0 || c < 1 || c > 1024) return cudaErrorInvalidValue;
   if (e == 0) return cudaSuccess;
-  const dim3 grid(e);
-  const dim3 block((c + 31) / 32 * 32);
-  const size_t smem = 2 * static_cast<size_t>(c) * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    att_core_kernel<float><<<grid, block, smem, s>>>(
-        static_cast<const float*>(phi), static_cast<const float*>(theta),
-        static_cast<const float*>(g), static_cast<float*>(y), c);
+    launch<float>(phi, theta, g, y, e, c, s);
   } else if (dtype == 1) {
-    att_core_kernel<__nv_bfloat16><<<grid, block, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(phi),
-        static_cast<const __nv_bfloat16*>(theta),
-        static_cast<const __nv_bfloat16*>(g), static_cast<float*>(y), c);
+    launch<__nv_bfloat16>(phi, theta, g, y, e, c, s);
   } else {
     return cudaErrorInvalidValue;
   }

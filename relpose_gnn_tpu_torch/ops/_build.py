@@ -13,6 +13,7 @@ machine with `nvcc` and a card calls `load`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,14 +22,25 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-ldl")
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple, ctypes.CDLL] = {}
+
+
+def on_device(device):
+    """Context under which a launch goes to CUDA `device`: nothing to do
+    when it is the current device already (the usual case, and several
+    microseconds cheaper per launch than switching to it)."""
+    if torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def find_nvcc() -> str:
@@ -49,20 +61,24 @@ def find_nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    """Where `csrc/<name>.cu` builds to, keyed by a hash of source+flags."""
+def library_path(name: str, defines: tuple = ()) -> Path:
+    """Where `csrc/<name>.cu` builds to, keyed by a hash of source+flags.
+    `defines` are preprocessor settings ("NAME=VALUE") of a build that
+    differs from the default one, as a bench of a kernel's design steps
+    asks for."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    digest = hashlib.sha256(src + "\0".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: tuple = ()) -> Path:
     """Compile `csrc/<name>.cu` unless its library is already built.
 
     The compiler's output (with `-Xptxas=-v`: registers, shared memory and
     spills per kernel) is kept beside the library as `<lib>.log`.  Raises
     RuntimeError with the command line and stderr if nvcc fails."""
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -70,7 +86,8 @@ def build(name: str) -> Path:
     # (or loads) a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
+           str(CSRC_DIR / f"{name}.cu")]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -85,10 +102,12 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load `csrc/<name>.cu`; one handle per process."""
-    lib = _LIBS.get(name)
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<name>.cu`; one handle per process
+    and set of `defines`."""
+    key = (name, tuple(defines))
+    lib = _LIBS.get(key)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _LIBS[name] = lib
+        lib = ctypes.CDLL(str(build(name, tuple(defines))))
+        _LIBS[key] = lib
     return lib

@@ -99,7 +99,7 @@ def attention_core(phi: torch.Tensor, theta: torch.Tensor,
     if e == 0:
         return y
     lib = _lib()
-    with torch.cuda.device(phi.device):
+    with _build.on_device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
         err = lib.att_core_forward(phi.data_ptr(), theta.data_ptr(),
                                    g.data_ptr(), y.data_ptr(), e, c,

@@ -24,7 +24,12 @@ The kernels are in `csrc/att_variants.cu`; its comment says how each form
 is laid out on Hopper.  The TPU's `block_e` tiling and its padding of E are
 not carried over.  The port's benches (`benchmarks/bench_att_variants.py`,
 `bench_att_variants2.py`, `bench_att_exp2.py`) time every form in turns
-with the production kernel.
+with the production kernel.  That kernel was `v1`'s arithmetic, bit for
+bit, until it was redesigned around what these probes showed (exp2 domain,
+one FMA per logit, raw `ex2.approx`, several chains a thread); `v1` is now
+the record of that earlier form and the parent to time against, and the
+production kernel agrees with every form here to 1e-5 of max |y|, not bit
+for bit.
 
 Each entry function decides by the tensors' device: CPU tensors take the
 form's plain version (`PLAIN[form]`, written with the body's own
@@ -236,11 +241,11 @@ def core_work(e: int, c: int, in_itemsize: int, form: int | None) -> dict:
     """Bytes moved and operations done by one call at [E, C], for the
     bound: three inputs read once, the float32 output written once;
     E * C^2 exponentials; and the float32 operations per logit beside the
-    exponential.  `form` None is the production kernel (the arithmetic of
-    `analytic`).
+    exponential.  `form` None is the production kernel.
 
     Per logit: the product, the subtraction of the max, the sum into z
-    and the multiply-add into y count 5, as for the production kernel.  A
+    and the multiply-add into y count 5, as for the production kernel
+    (which fuses the first two into one multiply-add).  A
     scanned max adds the product again and a compare (7).  An exponential
     counts as one special-function operation whether it is `exp` or
     `exp2`, so the exp2 forms have the production kernel's bound: what

@@ -3,11 +3,15 @@
     out = relu(xs @ w1a + xt @ w1b + e @ w1c + b1) @ w2 + b2
 
 Port of `relpose_gnn_tpu/ops/gnn_pallas.py` (`fused_pair_mlp`,
-`pair_mlp_apply`).  The kernels are in `csrc/pair_mlp.cu` (float32
-operands on FMAs, bfloat16 operands on the tensor cores); its source note
-says what bounds them and who owns the accumulator.  As in the JAX package, no
-model path calls it (the GNN uses the split-weight `PairMLP2`); it is
-reached from `benchmarks/bench_pair_mlp.py`.
+`pair_mlp_apply`).  The kernels are in `csrc/pair_mlp.cu`, three routes:
+'fma' (float32 operands, FMA loops), 'wgmma' (bfloat16 operands with
+widths that are multiples of 8 and 16-byte aligned pointers:
+warp-specialised wgmma, a TMA weight ring, partial sums joined by bulk
+reduce-add) and 'mma_sync' (any other bfloat16 shape: mma.sync with
+masked loads).  `kernel_route` picks one from dtype and shape; the source
+note says what bounds them and who owns the accumulator.  As in the JAX
+package, no model path calls it (the GNN uses the split-weight
+`PairMLP2`); it is reached from `benchmarks/bench_pair_mlp.py`.
 
 Operands (xs, xt, e) are cast to the weights' dtype, float32 or bfloat16;
 both products accumulate in float32; the hidden activation is rounded to
@@ -15,7 +19,9 @@ the weights' dtype before the second product; biases and the result are
 float32.  Weights are in the JAX orientation, `[in, out]`.
 
 `fused_pair_mlp` decides by the tensors' device: CPU tensors take
-`fused_pair_mlp_plain`; CUDA tensors launch the kernel or raise.  Forward
+`fused_pair_mlp_plain`; CUDA tensors launch the kernel of their route or
+raise (`route=` asks for one by name; it is a choice, never a fallback:
+nothing catches a route that fails to build or launch).  Forward
 only.  What the TPU wrapper pads (E to `block_e`, H to `block_h`) the
 kernel masks itself, so those parameters and `interpret` do not exist here.
 """
@@ -28,10 +34,43 @@ import torch
 
 from relpose_gnn_tpu_torch.ops import _build
 
-# Kernel launches so far in this process (see ops/att_core.py).
+# Kernel launches so far in this process (see ops/att_core.py): all
+# routes together, and each route's own.
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"fma": 0, "mma_sync": 0, "wgmma": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_CODE = {"fma": 0, "mma_sync": 1, "wgmma": 2}
+
+
+def kernel_route(dtype: torch.dtype, d: int, de: int, h: int, dout: int,
+                 aligned: bool = True, route: str | None = None) -> str:
+    """Which kernel of `csrc/pair_mlp.cu` takes these operands: a choice
+    by dtype and shape, never a fallback.
+
+    float32 -> 'fma'.  bfloat16 -> 'wgmma' when every width is a multiple
+    of 8 (16-byte row strides for the tensor maps) and every pointer is
+    16-byte aligned (`aligned`), else 'mma_sync', which masks everything.
+    `route` asks for one by name and raises if it does not fit."""
+    if dtype == torch.float32:
+        fits = ("fma",)
+    elif dtype == torch.bfloat16:
+        wide = aligned and not any(w % 8 for w in (d, de, h, dout))
+        fits = ("wgmma", "mma_sync") if wide else ("mma_sync",)
+    else:
+        raise TypeError(f"fused_pair_mlp: weights have dtype {dtype}; "
+                        "the kernel takes float32 or bfloat16")
+    if route is None:
+        return fits[0]
+    if route not in _ROUTE_CODE:
+        raise ValueError(f"fused_pair_mlp: route={route!r} (want one of "
+                         f"{sorted(_ROUTE_CODE)})")
+    if route not in fits:
+        raise ValueError(
+            f"fused_pair_mlp: route {route!r} does not take {dtype} "
+            f"operands of widths D={d} De={de} H={h} Dout={dout}"
+            f"{'' if aligned else ', not 16-byte aligned'} (it fits "
+            f"{' or '.join(fits)})")
+    return route
 
 
 def _pair_rows(x: torch.Tensor, nodes: int, target: bool) -> torch.Tensor:
@@ -61,8 +100,8 @@ def fused_pair_mlp_plain(xs, xt, e, w1a, w1b, w1c, b1, w2, b2,
     return h @ w2.float() + b2.float()
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("pair_mlp")
+def _lib(defines: tuple = ()) -> ctypes.CDLL:
+    lib = _build.load("pair_mlp", defines)
     if lib.pair_mlp_forward.argtypes is None:
         lib.pair_mlp_forward.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 6
@@ -90,7 +129,7 @@ def _check_kernel_inputs(xs, xt, e, w1a, w1b, w1c, b1, w2, b2,
                 f"fused_pair_mlp: {name} has dtype {a.dtype}, want {want} "
                 "(operands and weights share one dtype, biases are "
                 "float32)")
-    if w1a.dtype not in _DTYPE_CODE:
+    if w1a.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_pair_mlp: weights have dtype {w1a.dtype}; "
                         "the kernel takes float32 or bfloat16")
     d, h = w1a.shape if w1a.dim() == 2 else (-1, -1)
@@ -129,11 +168,43 @@ def _check_kernel_inputs(xs, xt, e, w1a, w1b, w1c, b1, w2, b2,
                              f"({xs.device} vs {a.device})")
 
 
+def _run_kernel(lib: ctypes.CDLL, route: str | None, xs, xt, e, w1a, w1b,
+                w1c, b1, w2, b2, nodes: int) -> torch.Tensor:
+    """Launch the kernel of `route` (None: the one `kernel_route` picks)
+    from the build `lib` on checked CUDA tensors and count the launch."""
+    global LAUNCHES
+    rows, de = e.shape
+    d, h = w1a.shape
+    dout = w2.shape[1]
+    out = torch.empty((rows, dout), dtype=torch.float32, device=xs.device)
+    tensors = [a for a in (xs, xt, e, w1a, w1b, w1c, b1, w2, b2, out)
+               if a is not None]
+    route = kernel_route(w1a.dtype, d, de, h, dout,
+                         all(a.data_ptr() % 16 == 0 for a in tensors), route)
+    if rows == 0:
+        return out
+    with _build.on_device(xs.device):
+        stream = torch.cuda.current_stream(xs.device).cuda_stream
+        err = lib.pair_mlp_forward(
+            xs.data_ptr(), None if xt is None else xt.data_ptr(),
+            e.data_ptr(), w1a.data_ptr(),
+            None if w1b is None else w1b.data_ptr(), w1c.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            rows, d, de, h, dout, nodes, _ROUTE_CODE[route], stream)
+    if err != 0:
+        msg = lib.pair_mlp_error_string(err).decode()
+        raise RuntimeError(f"pair_mlp launch on route {route!r} failed: "
+                           f"{msg} (error {err})")
+    LAUNCHES += 1
+    ROUTE_LAUNCHES[route] += 1
+    return out
+
+
 def fused_pair_mlp(xs: torch.Tensor, xt: torch.Tensor | None,
                    e: torch.Tensor, w1a: torch.Tensor,
                    w1b: torch.Tensor | None, w1c: torch.Tensor,
                    b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-                   nodes: int = 0) -> torch.Tensor:
+                   nodes: int = 0, route: str | None = None) -> torch.Tensor:
     """relu(xs@w1a + xt@w1b + e@w1c + b1) @ w2 + b2 -> float32 [E, Dout].
 
     xs, xt: [E, D]; e: [E, De]; w1a, w1b: [D, H]; w1c: [De, H]; b1: [H];
@@ -143,35 +214,17 @@ def fused_pair_mlp(xs: torch.Tensor, xt: torch.Tensor | None,
     p // N and (p // N^2) * N + p % N, so the [E, D] broadcasts are never
     materialised.
 
-    CPU tensors: `fused_pair_mlp_plain`.  CUDA tensors (operands and
-    weights all float32 or all bfloat16, biases float32, contiguous): the
-    kernel, launched on the current stream; anything it cannot take
-    raises."""
-    global LAUNCHES
+    CPU tensors: `fused_pair_mlp_plain` (`route` is not looked at).  CUDA
+    tensors (operands and weights all float32 or all bfloat16, biases
+    float32, contiguous): the kernel `kernel_route` picks for them, or the
+    one `route` names ('fma', 'mma_sync', 'wgmma'), launched on the
+    current stream; anything it cannot take raises."""
     if xs.device.type == "cpu":
         return fused_pair_mlp_plain(xs, xt, e, w1a, w1b, w1c, b1, w2, b2,
                                     nodes)
     _check_kernel_inputs(xs, xt, e, w1a, w1b, w1c, b1, w2, b2, nodes)
-    rows, de = e.shape
-    d, h = w1a.shape
-    dout = w2.shape[1]
-    out = torch.empty((rows, dout), dtype=torch.float32, device=xs.device)
-    if rows == 0:
-        return out
-    lib = _lib()
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream(xs.device).cuda_stream
-        err = lib.pair_mlp_forward(
-            xs.data_ptr(), None if xt is None else xt.data_ptr(),
-            e.data_ptr(), w1a.data_ptr(),
-            None if w1b is None else w1b.data_ptr(), w1c.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            rows, d, de, h, dout, nodes, _DTYPE_CODE[w1a.dtype], stream)
-    if err != 0:
-        msg = lib.pair_mlp_error_string(err).decode()
-        raise RuntimeError(f"pair_mlp launch failed: {msg} (error {err})")
-    LAUNCHES += 1
-    return out
+    return _run_kernel(_lib(), route, xs, xt, e, w1a, w1b, w1c, b1, w2, b2,
+                       nodes)
 
 
 def pair_mlp_apply(x: torch.Tensor, e: torch.Tensor,

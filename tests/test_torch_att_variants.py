@@ -45,7 +45,9 @@ def _torch(args, dtype=torch.float32):
 
 
 def _rel(got, want):
-    got, want = np.asarray(got), np.asarray(want)
+    """max |got - want| over max |want|; arrays, or tensors on any device."""
+    got, want = (np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+                 for a in (got, want))
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
@@ -275,7 +277,9 @@ def test_kernel_v1_equals_base_bitwise_on_cuda(cuda_device, e, c):
             for _ in range(3)]
     base = att_variants.restructured_core("base", *args)
     assert torch.equal(att_variants.restructured_core("v1", *args), base)
-    assert torch.equal(att_core.attention_core(*args), base)
+    # the production kernel builds its logits with one FMA in the exp2
+    # domain: close to `base`, no longer bit for bit
+    assert _rel(att_core.attention_core(*args), base) < REL_TOL
 
 
 @pytest.mark.gpu

@@ -21,9 +21,10 @@ import pytest
 import torch
 
 from relpose_gnn_tpu.ops import gnn_pallas
-from relpose_gnn_tpu_torch.benchmarks import bench_pair_mlp
+from relpose_gnn_tpu_torch.benchmarks import (bench_pair_mlp,
+                                              bench_pair_mlp_steps)
 from relpose_gnn_tpu_torch.models.gnn import MLP2
-from relpose_gnn_tpu_torch.ops import pair_mlp
+from relpose_gnn_tpu_torch.ops import _build, pair_mlp
 
 F32_TOL = dict(rtol=1e-4, atol=1e-3)
 BF16_TOL = dict(rtol=1e-2, atol=2e-2)
@@ -148,6 +149,65 @@ def test_cpu_path_never_counts_a_launch():
     assert pair_mlp.LAUNCHES == before
 
 
+@pytest.mark.parametrize("dtype,widths,aligned,want", [
+    (torch.bfloat16, (2048, 2048, 2048, 2048), True, "wgmma"),
+    (torch.bfloat16, (24, 8, 40, 8), True, "wgmma"),
+    (torch.bfloat16, (16, 16, 32, 16), True, "wgmma"),
+    (torch.bfloat16, (20, 8, 40, 8), True, "mma_sync"),     # D % 8
+    (torch.bfloat16, (24, 12, 40, 8), True, "mma_sync"),    # De % 8
+    (torch.bfloat16, (24, 8, 36, 8), True, "mma_sync"),     # H % 8
+    (torch.bfloat16, (24, 8, 40, 10), True, "mma_sync"),    # Dout % 8
+    (torch.bfloat16, (2048, 2048, 2048, 2048), False, "mma_sync"),
+    (torch.float32, (2048, 2048, 2048, 2048), True, "fma"),
+    (torch.float32, (3, 5, 1, 2), False, "fma"),
+])
+def test_kernel_route_by_dtype_and_shape(dtype, widths, aligned, want):
+    """The route is a pure function of dtype, widths and alignment."""
+    assert pair_mlp.kernel_route(dtype, *widths, aligned) == want
+    # asking for the route the shape selects is the same as not asking
+    assert pair_mlp.kernel_route(dtype, *widths, aligned, route=want) == want
+
+
+@pytest.mark.parametrize("dtype,widths,aligned,route,exc", [
+    (torch.bfloat16, (20, 8, 40, 8), True, "wgmma", ValueError),
+    (torch.bfloat16, (2048, 2048, 2048, 2048), False, "wgmma", ValueError),
+    (torch.bfloat16, (2048, 2048, 2048, 2048), True, "fma", ValueError),
+    (torch.float32, (2048, 2048, 2048, 2048), True, "wgmma", ValueError),
+    (torch.float32, (2048, 2048, 2048, 2048), True, "mma_sync", ValueError),
+    (torch.bfloat16, (2048, 2048, 2048, 2048), True, "cublas", ValueError),
+    (torch.float16, (2048, 2048, 2048, 2048), True, None, TypeError),
+])
+def test_kernel_route_refuses_what_does_not_fit(dtype, widths, aligned,
+                                                route, exc):
+    """A route asked for by name that the operands do not fit raises: it
+    is a choice, never a fallback."""
+    with pytest.raises(exc):
+        pair_mlp.kernel_route(dtype, *widths, aligned, route=route)
+
+
+def test_aligned_bf16_may_still_ask_for_mma_sync():
+    assert pair_mlp.kernel_route(torch.bfloat16, 2048, 2048, 2048, 2048,
+                                 route="mma_sync") == "mma_sync"
+
+
+@pytest.mark.parametrize("route", [None, "wgmma", "mma_sync", "fma",
+                                   "no-such-route"])
+def test_route_is_not_looked_at_for_cpu_tensors(route):
+    """CPU tensors take the plain version whatever `route` says, and no
+    launch is counted on any route."""
+    args = list(map(torch.from_numpy, _fused_inputs(8, 4, 4, 4, 4)))
+    before = (pair_mlp.LAUNCHES, dict(pair_mlp.ROUTE_LAUNCHES))
+    got = pair_mlp.fused_pair_mlp(*args, route=route)
+    want = pair_mlp.fused_pair_mlp_plain(*args)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert (pair_mlp.LAUNCHES, pair_mlp.ROUTE_LAUNCHES) == before
+
+
+def test_route_counts_cover_every_route_and_sum_to_the_total():
+    assert set(pair_mlp.ROUTE_LAUNCHES) == {"fma", "mma_sync", "wgmma"}
+    assert sum(pair_mlp.ROUTE_LAUNCHES.values()) == pair_mlp.LAUNCHES
+
+
 def _meta_args(dtype=torch.float32):
     s = [(8, 4), (8, 4), (8, 3), (4, 5), (4, 5), (3, 5), (5,), (5, 2), (2,)]
     return [torch.empty(*shape, device="meta",
@@ -203,6 +263,23 @@ def test_bench_entry_runs_on_cpu_when_asked_and_refuses_by_default(capsys):
                                  "8", "--iters", "1"])
 
 
+def test_steps_bench_names_its_builds_and_needs_the_card():
+    """Every design step is a build of the source with its settings; the
+    default build has none.  Off the card there is nothing to time."""
+    steps = bench_pair_mlp_steps.STEPS
+    assert steps["default"] == ()
+    assert {"ring2", "tile128", "tile256", "rows_fast",
+            "atomics"} <= set(steps)
+    source = (_build.CSRC_DIR / "pair_mlp.cu").read_text()
+    for defs in steps.values():
+        for setting in defs:
+            name, _, value = setting.partition("=")
+            assert value and f"#ifndef {name}" in source, setting
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench_pair_mlp_steps.main(["--nodes", "2", "--dims", "8"])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -237,3 +314,164 @@ def test_apply_kernel_matches_plain_on_cuda(cuda_device, shape):
     want = pair_mlp.pair_mlp_apply(*[a.cpu() for a in args], mode=mode,
                                    dtype=torch.float32)
     torch.testing.assert_close(got.cpu(), want, **F32_TOL)
+
+
+def _bf16_ops(device, e_rows, d, de, h, dout, xt=True, seed=3):
+    """Direct-row bfloat16 operands with weights scaled to keep the sums
+    near 1; biases float32."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    bf = torch.bfloat16
+    k_in = (2 * d if xt else d) + de
+    return [r(e_rows, d).to(bf), r(e_rows, d).to(bf) if xt else None,
+            r(e_rows, de).to(bf), r(d, h, scale=k_in ** -0.5).to(bf),
+            r(d, h, scale=k_in ** -0.5).to(bf) if xt else None,
+            r(de, h, scale=k_in ** -0.5).to(bf), r(h) * 0.1,
+            r(h, dout, scale=h ** -0.5).to(bf), r(dout) * 0.1]
+
+
+# max |kernel - plain| over max |out|: chip_smoke.py derives the bound
+PAIR_BF16_REL = 2e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("shape,xt", [
+    ((1024, 2048, 2048, 2048, 2048), True),
+    ((1024, 2048, 2048, 2048, 2048), False),
+    ((16384, 2048, 2048, 2048, 2048), True),
+    ((1000, 2048, 2048, 2056, 1032), True),      # ragged against every tile
+    ((1000, 2048, 2048, 2056, 1032), False),
+    ((72, 24, 8, 40, 8), True),
+    ((129, 64, 8, 264, 136), True),
+])
+def test_bf16_routes_match_plain_on_cuda(cuda_device, shape, xt, route):
+    """Both bfloat16 routes on the same aligned inputs, each counted on
+    its own route."""
+    args = _bf16_ops(cuda_device, *shape, xt=xt)
+    before = dict(pair_mlp.ROUTE_LAUNCHES)
+    got = pair_mlp.fused_pair_mlp(*args, route=route)
+    want = pair_mlp.fused_pair_mlp_plain(*args)
+    torch.cuda.synchronize()
+    after = pair_mlp.ROUTE_LAUNCHES
+    assert {k: after[k] - before[k] for k in after} == {
+        "fma": 0, "mma_sync": 0, "wgmma": 0, route: 1}
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= PAIR_BF16_REL * float(
+        want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["edge", "msg"])
+@pytest.mark.parametrize("nodes", [8, 32])
+def test_apply_takes_the_wgmma_route_at_the_bench_shapes(cuda_device, mode,
+                                                         nodes):
+    """`pair_mlp_apply` at B = 16, every width 2048 (E = 1024 and 16384):
+    sliced weights stay 16-byte aligned, so the shape selects 'wgmma'."""
+    rng = np.random.default_rng(4)
+    d = 2048
+    k_in = (2 * d if mode == "edge" else d) + d
+    x = torch.from_numpy(rng.normal(size=(16, nodes, d)).astype(np.float32))
+    e = torch.from_numpy(rng.normal(size=(16, nodes, nodes, d)).astype(
+        np.float32))
+    fc1 = torch.from_numpy((rng.normal(size=(k_in, d)) * k_in ** -0.5).astype(
+        np.float32))
+    fc2 = torch.from_numpy((rng.normal(size=(d, d)) * d ** -0.5).astype(
+        np.float32))
+    args = [t.to(cuda_device) for t in (
+        x, e, fc1, torch.zeros(d), fc2, torch.zeros(d))]
+    before = pair_mlp.ROUTE_LAUNCHES["wgmma"]
+    got = pair_mlp.pair_mlp_apply(*args, mode=mode, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert pair_mlp.ROUTE_LAUNCHES["wgmma"] == before + 1
+    bf = torch.bfloat16
+    xf = args[0].reshape(-1, d).to(bf)
+    edge = mode == "edge"
+    want = pair_mlp.fused_pair_mlp_plain(
+        xf, xf if edge else None, args[1].reshape(-1, d).to(bf),
+        args[2][:d].to(bf), args[2][d:2 * d].to(bf) if edge else None,
+        args[2][2 * d if edge else d:].to(bf), args[3], args[4].to(bf),
+        args[5], nodes=nodes).reshape(got.shape)
+    assert float((got - want).abs().max()) <= PAIR_BF16_REL * float(
+        want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("b,n,d,de,h,dout,mode", [
+    (8, 10, 512, 512, 512, 512, "edge"),     # N no power of two: gathered
+    (8, 10, 512, 512, 512, 512, "msg"),
+    (2, 6, 24, 8, 40, 8, "edge"),
+    (16, 16, 512, 256, 512, 256, "edge"),    # a block is part of one graph
+    (16, 8, 256, 256, 256, 256, "edge"),     # a block is two whole graphs
+    (40, 2, 64, 32, 136, 72, "edge"),
+    (130, 1, 64, 32, 136, 72, "edge"),
+    (3, 128, 64, 32, 136, 72, "edge"),       # the widest boxed node count
+    (1, 136, 64, 32, 136, 72, "edge"),       # past it: gathered
+])
+def test_pair_grid_node_counts_on_cuda(cuda_device, b, n, d, de, h, dout,
+                                       mode, route):
+    """The pair grid at node counts that take each way of filling the
+    'wgmma' route's operand tiles (boxes of a zero-stride view of the node
+    table for powers of two up to 128, the gather otherwise), held to the
+    plain version like the 'mma_sync' route on the same inputs."""
+    rng = np.random.default_rng(5)
+    bf = torch.bfloat16
+    k_in = (2 * d if mode == "edge" else d) + de
+    x = torch.from_numpy(rng.normal(size=(b * n, d)).astype(np.float32))
+    e = torch.from_numpy(rng.normal(size=(b * n * n, de)).astype(np.float32))
+    fc1 = torch.from_numpy((rng.normal(size=(k_in, h)) * k_in ** -0.5
+                            ).astype(np.float32))
+    fc2 = torch.from_numpy((rng.normal(size=(h, dout)) * h ** -0.5
+                            ).astype(np.float32))
+    x, e, fc1, fc2 = (t.to(cuda_device).to(bf) for t in (x, e, fc1, fc2))
+    b1 = torch.from_numpy(rng.normal(size=h).astype(np.float32) * 0.1)
+    b2 = torch.from_numpy(rng.normal(size=dout).astype(np.float32) * 0.1)
+    edge = mode == "edge"
+    args = [x, x if edge else None, e, fc1[:d],
+            fc1[d:2 * d] if edge else None, fc1[2 * d if edge else d:],
+            b1.to(cuda_device), fc2, b2.to(cuda_device)]
+    got = pair_mlp.fused_pair_mlp(*args, nodes=n, route=route)
+    want = pair_mlp.fused_pair_mlp_plain(*args, nodes=n)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= PAIR_BF16_REL * float(
+        want.abs().max())
+
+
+@pytest.mark.gpu
+def test_ragged_widths_take_mma_sync_and_refuse_wgmma_on_cuda(cuda_device):
+    args = _bf16_ops(cuda_device, 72, 20, 12, 36, 10)
+    before = dict(pair_mlp.ROUTE_LAUNCHES)
+    got = pair_mlp.fused_pair_mlp(*args)
+    want = pair_mlp.fused_pair_mlp_plain(*args)
+    torch.cuda.synchronize()
+    assert pair_mlp.ROUTE_LAUNCHES["mma_sync"] == before["mma_sync"] + 1
+    assert pair_mlp.ROUTE_LAUNCHES["wgmma"] == before["wgmma"]
+    assert float((got - want).abs().max()) <= PAIR_BF16_REL * float(
+        want.abs().max())
+    with pytest.raises(ValueError, match="does not take"):
+        pair_mlp.fused_pair_mlp(*args, route="wgmma")
+
+
+@pytest.mark.gpu
+def test_unaligned_view_takes_mma_sync_on_cuda(cuda_device):
+    """A contiguous view that starts 2 bytes into its storage is not
+    16-byte aligned: no tensor map can describe it."""
+    args = _bf16_ops(cuda_device, 128, 64, 64, 128, 128)
+    w2 = torch.empty(128 * 128 + 1, dtype=torch.bfloat16,
+                     device=cuda_device)[1:].view(128, 128)
+    w2.copy_(args[7])
+    args[7] = w2
+    before = dict(pair_mlp.ROUTE_LAUNCHES)
+    got = pair_mlp.fused_pair_mlp(*args)
+    want = pair_mlp.fused_pair_mlp_plain(*args)
+    torch.cuda.synchronize()
+    assert pair_mlp.ROUTE_LAUNCHES["mma_sync"] == before["mma_sync"] + 1
+    assert float((got - want).abs().max()) <= PAIR_BF16_REL * float(
+        want.abs().max())
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        pair_mlp.fused_pair_mlp(*args, route="wgmma")
