@@ -48,7 +48,10 @@ is no CPU fallback: without CUDA it exits 1 at once.
             frames, both legs), `bench_service_bisect` and
             `bench_retrieval_stages` (batch 128, 2048 rows: every stage
             time positive, every share of the peak under 1) and
-            `bench_eval`; `mfu` must read under 1
+            `bench_eval`; `mfu` must read under 1.  After the train
+            phase, `bench_train` at batches 8 and 16 (R3 bf16 train step:
+            ms, graphs/s, mfu under 1, peak memory, 2 attention launches
+            a step)
   slice     R3 (ResNet34, dims 2048, kNN-4 compact edges, BN folded),
             seeded random weights, bfloat16: `evaluate_scene_cached` over
             a synthetic packed store of 48 query graphs at 256x341 with 64
@@ -71,6 +74,24 @@ is no CPU fallback: without CUDA it exits 1 at once.
             single-scene service on the same frames with `norm_ms`; add,
             invalidate, compact, save, load; a stream.  Checks are listed
             at `exercise_multiscene`.
+  train     training at R3 full width (ResNet34 at 256x341, dims 2048,
+            8-node graphs, dense kNN-4, two GNN passes, bf16, batch 8,
+            seeded weights): synthetic 7-Scenes stores
+            `chess_fc8_sp5_{train,test}` (64 / 16 graphs) written by
+            `PackedGraphWriter`; the attention core's gradients at the
+            training shape (E = 512, C = 256, float32 and bfloat16:
+            kernel forward + eager backward against autograd through the
+            plain version, see ATT_GRAD_REL_TOL); `run_training`
+            (experiment 2) for 2 epochs with a checkpoint after each and
+            an eval after the last: every loss finite, the attention
+            kernel launched gnn_recursion x (train steps + eval batches)
+            times; resume from epoch 0 under deterministic algorithms,
+            equal to the uninterrupted run bit for bit (or, where an op
+            without a deterministic CUDA form ran, within RESUME_TOL);
+            `save_torch_checkpoint` -> `run_eval` with `load_torch_weights`
+            into a fresh model: predictions equal bit for bit; one
+            float32 train step at droprate 0 with the kernel and with the
+            plain core swapped in (TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_TOL)
   time      CUDA events, median of 20 iterations after warm-up, the forms
             compared in turns within this one run: the attention core
             (kernel, its earlier form `restructured_core/v1`, `exp2_core`,
@@ -90,7 +111,10 @@ is no CPU fallback: without CUDA it exits 1 at once.
             time); the pair MLP (kernel on the 'wgmma' route, kernel on
             the 'mma_sync' route, plain, the concat and split-weight
             library forms) at E = 1024 and 16384, and the 'wgmma' kernel's
-            time on the device alone
+            time on the device alone; the R3 train step at batch 8 (step
+            ms, graphs/s, peak memory, a profiler window) and the
+            attention core's kernel forward and eager backward at its
+            shape (E = 512, C = 256, bf16)
 
 The timing helpers and the seeded models are the package's own
 (`benchmarks/_util.py`, `benchmarks/_synthetic.py`).  The line before the
@@ -101,15 +125,19 @@ the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
 import os
+import os.path as osp
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
@@ -124,11 +152,13 @@ from relpose_gnn_tpu_torch.benchmarks import (_synthetic, _util,
                                               bench_pair_mlp,
                                               bench_retrieval_stages,
                                               bench_service,
-                                              bench_service_bisect)
+                                              bench_service_bisect,
+                                              bench_train)
 from relpose_gnn_tpu_torch.benchmarks._util import in_turns, median_ms
 from relpose_gnn_tpu_torch.data.packed import (PackedGraphDataset,
                                                PackedGraphWriter)
-from relpose_gnn_tpu_torch.data.pipeline import make_normalizer
+from relpose_gnn_tpu_torch.data.pipeline import (device_prefetch,
+                                                 make_normalizer)
 from relpose_gnn_tpu_torch.evaluation import serving
 from relpose_gnn_tpu_torch.evaluation.evaluator import compute_pose_errors
 from relpose_gnn_tpu_torch.evaluation.multiscene import MultiSceneService
@@ -138,6 +168,15 @@ from relpose_gnn_tpu_torch.evaluation.service import (RelocalizationService,
 from relpose_gnn_tpu_torch.models.posenet import RelPoseGNN
 from relpose_gnn_tpu_torch.ops import _build, att_core, att_variants, pair_mlp
 from relpose_gnn_tpu_torch.retrieval.subsample import fold_in
+from relpose_gnn_tpu_torch.training.checkpoints import save_torch_checkpoint
+from relpose_gnn_tpu_torch.training.experiment import (ExperimentConfig,
+                                                       build_model,
+                                                       evaluate_scene,
+                                                       run_eval, run_training)
+from relpose_gnn_tpu_torch.training.trainer import (TrainerConfig,
+                                                    create_train_state,
+                                                    loss_fn, make_eval_step,
+                                                    make_train_step)
 
 SEED = 0
 # attention kernel vs plain version.  y is a ratio of two sums of C
@@ -171,6 +210,33 @@ PAIR_F32_TOL = dict(rtol=1e-4, atol=1e-3)
 # (up to ~8) flips of above-average terms (3 rms) in one row move it by
 # 8 * 2^-8 * 3 rms = 0.09 rms, which is 2e-3 of 45 rms.
 PAIR_BF16_TOL = 2e-3
+# gradients of the attention core under autograd (AttentionCoreFunction:
+# kernel forward, eager backward) against autograd through the plain
+# version, max |diff| over max |plain gradient|.  Both evaluate the same
+# VJP in float32 in other orders: sums of C = 256 terms, about
+# sqrt(C) * 2^-24 = 1e-6 relative.  The Function's backward reads the
+# kernel's y, within KERNEL_TOL (3e-6 measured) of the plain one; y enters
+# through (g_j - y_i), a shift of the same size relative to the gradient's
+# scale.  Together a few 1e-6 in float32: 1e-4 leaves room for
+# cancellation.  bfloat16 inputs get bfloat16 gradients on both sides, and
+# two float32 values within 1e-5 of each other can round to neighbouring
+# bfloat16 values, one ulp = 2^-8 of the value: 2^-7 of the maximum.
+ATT_GRAD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
+# one float32 train step, kernel vs plain core swapped in.  The forward
+# differs by the core's 1e-6 relative; loss (a mean of 3072 absolute
+# errors) to rtol 1e-5.  Gradients, each tensor's max |diff| over its max
+# |gradient|: the 1e-6 carried back through the GNN and 36 BatchNorm'd
+# convolutions stays near 1e-5; an L1 term whose residual is within 1e-6
+# of zero flips its sign, which moves one of 3072 equal shares of the
+# head's gradient (3e-4 of it): 1e-3 covers one such flip.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL_TOL = 1e-3
+# resume where an op without a deterministic CUDA form ran: two runs whose
+# gradients differ by rounding can move a weight whose gradient is near 0
+# in opposite directions.  An Adam update moves a weight by
+# lr * m_hat / (sqrt(v_hat) + eps), at most (1 - b1) / sqrt(1 - b2) = 3.16
+# lr; two runs apart by twice that per update: 6.4 lr x updates.
+RESUME_TOL = 6.4
 # attention-variant kernels, max |kernel - plain| over max |y|, float32 and
 # bfloat16 inputs (widened exactly on load).  y is a ratio of two sums of
 # C positive weights.  Kernel and plain version sum in different orders:
@@ -247,7 +313,7 @@ def profile_step(label: str, fn, step_ms: float, steps: int = 5) -> None:
     if not kernels:
         phase("time", f"{label}: the profiler recorded no device "
               "activity; busy and idle share not measured")
-        return
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     by_name: dict[str, float] = {}
@@ -272,6 +338,9 @@ def profile_step(label: str, fn, step_ms: float, steps: int = 5) -> None:
     for name, us in top:
         phase("time", f"    {us / steps / 1e3:.4f} ms/step "
               f"({us / busy:.1%} of busy)  {short_kernel_name(name)}")
+    return {"busy_ms": busy / steps / 1e3,
+            "idle_share": 1 - busy / steps / 1e3 / step_ms,
+            "kernel_ms": {n: us / steps / 1e3 for n, us in by_name.items()}}
 
 
 def device_ms(fn, kernel: str, calls: int = 10) -> float | None:
@@ -1314,6 +1383,332 @@ def run_service_benches() -> None:
 
 
 # ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+TRAIN_GRAPHS, TEST_GRAPHS, TRAIN_BATCH = 64, 16, 8
+
+
+def write_train_stores(root: str, rng: np.random.Generator) -> None:
+    """Synthetic 7-Scenes stores `chess_fc8_sp5_{train,test}` at HxW:
+    graphs of 8 frames drawn from a pool of 96, fully connected, with
+    poses and neighbour indices."""
+    pool = rng.integers(0, 256, size=(96, H, W, 3), dtype=np.uint8)
+    pool_poses = rng.normal(size=(96, 6)).astype(np.float32)
+    for split, n in (("train", TRAIN_GRAPHS), ("test", TEST_GRAPHS)):
+        writer = PackedGraphWriter(osp.join(root, f"chess_fc8_sp5_{split}"),
+                                   n, 8, H, W, mean=MEAN, std=STD)
+        for _ in range(n):
+            idx = rng.choice(len(pool), 8, replace=False)
+            writer.add(pool[idx].astype(np.float32) / 255.0,
+                       pool_poses[idx], ~np.eye(8, dtype=bool),
+                       nbr_idx=idx[1:])
+        writer.finalize()
+
+
+def train_config(root: str, **kw) -> ExperimentConfig:
+    """Experiment 2 (one scene), R3 at full width, bf16, batch 8."""
+    base = dict(dataset="7Scenes", experiment=2, train_scene="chess",
+                test_scene="chess", train_data_dir=root,
+                test_data_dir=root, save_dir=osp.join(root, "out"),
+                exp_name="smoke", model_name="R3",
+                batch_size=TRAIN_BATCH, seq_len=8, max_epoch=2,
+                eval_after_epoch=0, ckpt_every=1, dtype="bfloat16",
+                seed=SEED)
+    base.update(kw)
+    return ExperimentConfig(**base)
+
+
+def check_attention_grad(dev) -> None:
+    """The attention core's gradients at the training shape (E = B * N^2
+    = 512, C = 256), kernel forward + eager backward against autograd
+    through the plain version (ATT_GRAD_REL_TOL)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [torch.randn(512, 256, device=dev, generator=gen).to(dtype)
+                .requires_grad_() for _ in range(3)]
+        ybar = torch.randn(512, 256, device=dev, generator=gen)
+        before = att_core.LAUNCHES
+        got = torch.autograd.grad(att_core.attention_core(*args), args, ybar)
+        check(att_core.LAUNCHES == before + 1,
+              "attention_core with grad did not launch the kernel")
+        want = torch.autograd.grad(att_core.attention_core_plain(*args),
+                                   args, ybar)
+        errs = []
+        for name, a, b in zip(("phi", "theta", "g"), got, want):
+            check(a.dtype == dtype, f"grad of {name} is {a.dtype}")
+            rel = ((a.float() - b.float()).abs().max()
+                   / b.float().abs().max()).item()
+            errs.append(rel)
+            check(rel <= ATT_GRAD_REL_TOL[dtype],
+                  f"attention grad of {name} ({dtype}): {rel} of max")
+        phase("train", f"attention_core gradients E=512 C=256 "
+              f"{str(dtype)[6:]}, kernel forward + eager backward vs "
+              f"autograd through the plain version: max |diff| / max |grad| "
+              f"phi {errs[0]:.3e}, theta {errs[1]:.3e}, g {errs[2]:.3e} "
+              f"(tolerance {ATT_GRAD_REL_TOL[dtype]:.3e})")
+
+
+def check_train_step_kernel_vs_plain(dev, root: str) -> None:
+    """One float32 train step's loss and gradients at droprate 0, with
+    the kernel and with the plain core swapped in (TRAIN_LOSS_RTOL,
+    TRAIN_GRAD_REL_TOL)."""
+    cfg = train_config(root, dtype="float32", droprate=0.0)
+    ds = PackedGraphDataset(osp.join(root, "chess_fc8_sp5_train"))
+    batch = next(device_prefetch(iter([ds.batch(np.arange(TRAIN_BATCH))]),
+                                 ds.mean, ds.std, dev))
+    tcfg = TrainerConfig()
+    runs = []
+    for plain in (False, True):
+        state = create_train_state(build_model(cfg, dev), tcfg)
+        ctx = (mock.patch.object(att_core, "attention_core",
+                                 att_core.attention_core_plain)
+               if plain else contextlib.nullcontext())
+        before = att_core.LAUNCHES
+        with ctx:
+            total, _ = loss_fn(state, batch, None, tcfg)
+            total.backward()
+        check(att_core.LAUNCHES - before == (0 if plain else 2),
+              f"float32 train step launched the kernel "
+              f"{att_core.LAUNCHES - before} times (plain={plain})")
+        # the absolute head and its criterion take no part in the loss
+        runs.append((total.item(), {n: p.grad.clone() for n, p in zip(
+            state.optimizer.names, state.optimizer.params)
+            if p.grad is not None}))
+        del state
+    (loss_k, grads_k), (loss_p, grads_p) = runs
+    check(abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p),
+          f"float32 train step: loss {loss_k} with the kernel, {loss_p} "
+          "with the plain core")
+    check(set(grads_k) == set(grads_p), "kernel and plain core train "
+          "different parameters")
+    worst, worst_name = 0.0, None
+    for name, gp in grads_p.items():
+        scale = gp.abs().max().item()
+        rel = ((grads_k[name] - gp).abs().max().item() / scale
+               if scale else 0.0)
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst <= TRAIN_GRAD_REL_TOL,
+          f"float32 train step: gradient {worst_name} differs by {worst} "
+          "of its max between kernel and plain core")
+    phase("train", f"float32 train step at droprate 0, batch {TRAIN_BATCH}: "
+          f"loss {loss_k} (kernel) vs {loss_p} (plain core); over "
+          f"{len(grads_p)} gradients the largest max |diff| / max |grad| "
+          f"is {worst:.3e} ({worst_name}; tolerance {TRAIN_GRAD_REL_TOL})")
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """Deterministic algorithms on, cuDNN's included; yields the list of
+    warnings, where an op that has no deterministic form on CUDA says so
+    (CUBLAS_WORKSPACE_CONFIG is set in main, before cuBLAS starts)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def run_train(dev, root: str) -> int:
+    """`run_training` at R3 full width for 2 epochs with a checkpoint
+    after each and an eval after the last, resumed from epoch 0, and the
+    reference `.pth.tar` both ways.  Returns the attention kernel's
+    launches of the main run."""
+    t0 = time.perf_counter()
+    write_train_stores(root, np.random.default_rng(SEED + 3))
+    phase("train", f"packed stores chess_fc8_sp5_train / _test: "
+          f"{TRAIN_GRAPHS} / {TEST_GRAPHS} graphs of 8 frames at {H}x{W} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check_attention_grad(dev)
+    # bit-for-bit resume on the card: deterministic algorithms for the
+    # training runs (see `deterministic_algorithms`)
+    with deterministic_algorithms() as caught:
+        cfg = train_config(root)
+        att_core.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = run_training(cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = att_core.LAUNCHES
+        state = out["state"]
+        steps = cfg.max_epoch * (TRAIN_GRAPHS // TRAIN_BATCH)
+        eval_batches = -(-TEST_GRAPHS // TRAIN_BATCH)
+        want = cfg.gnn_recursion * (steps + eval_batches)
+        check(state.step == steps, f"{state.step} train steps, want {steps}")
+        check(launches == want, f"attention kernel launched {launches} "
+              f"times in run_training, expected {want} = "
+              f"{cfg.gnn_recursion} x ({steps} steps + {eval_batches} eval "
+              "batches)")
+        logdir = osp.join(cfg.save_dir, "7Scenes", "chess", "smoke")
+        with open(osp.join(logdir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        evals = [r for r in recs if "median_t" in r]
+        check(len(losses) == cfg.max_epoch and all(
+            np.isfinite(x) for x in losses),
+            f"epoch losses {losses} (an epoch with a non-finite loss is "
+            "rolled back and writes none)")
+        check(len(evals) == 1 and np.isfinite(evals[0]["median_t"]),
+              f"eval records {evals}")
+        phase("train", f"run_training R3 bf16 batch {TRAIN_BATCH}, "
+              f"{cfg.max_epoch} epochs = {steps} steps, checkpoint after "
+              f"each epoch, eval after the last: {wall:.1f} s; epoch losses "
+              f"{losses} (every step finite); eval median "
+              f"{evals[0]['median_t']:.4f} m, {evals[0]['median_q']:.4f} "
+              f"deg; attention kernel launches {launches} (= "
+              f"{cfg.gnn_recursion} x ({steps} + {eval_batches}))")
+
+        # resume: restore epoch 0 and run epoch 1 again
+        ckdir = osp.join(logdir, "ckpt")
+        final = {k: v.clone() for k, v in _flat_state(state).items()}
+        shutil.rmtree(osp.join(ckdir, "1"))
+        before = att_core.LAUNCHES
+        resumed = run_training(dataclasses.replace(cfg, resume=True),
+                               device=dev)["state"]
+        again = _flat_state(resumed)
+        diffs = {k: (again[k].float() - v.float()).abs().max().item()
+                 for k, v in final.items()}
+        ops = sorted({str(w.message).split(" does not have")[0]
+                      for w in caught if "deterministic" in str(w.message)})
+        check(resumed.step == steps, f"resumed run: {resumed.step} steps")
+        differ = {k: d for k, d in diffs.items() if d}
+        if not ops:
+            check(not differ, f"resumed run differs from the uninterrupted "
+                  f"one: {differ}")
+            held = "equal the uninterrupted run's, bit for bit"
+        else:
+            tol = RESUME_TOL * cfg.lr * (TRAIN_GRAPHS // TRAIN_BATCH)
+            weights = {k: d for k, d in differ.items()
+                       if not k.startswith("adam.")
+                       and not k.endswith(("running_mean", "running_var"))}
+            check(all(d <= tol for d in weights.values()),
+                  f"resumed run's weights differ by more than {tol}: "
+                  f"{weights}")
+            held = (f"the weights and criterion within {tol} of the "
+                    f"uninterrupted run's (ops without a deterministic form "
+                    f"on CUDA: {ops}); {len(differ)} of them differ at all, "
+                    f"largest {max(differ.values(), default=0.0)}")
+        phase("train", f"resume from epoch 0 (deterministic algorithms on, "
+              f"CUBLAS_WORKSPACE_CONFIG={os.environ['CUBLAS_WORKSPACE_CONFIG']}"
+              f"): epoch 1 again ({att_core.LAUNCHES - before} launches); "
+              f"the {len(final)} tensors of the train state (weights, BN "
+              f"statistics, criterion, Adam moments and steps) {held}")
+
+        # the reference .pth.tar out and back in: same predictions
+        ds = PackedGraphDataset(osp.join(root, "chess_fc8_sp5_test"))
+        trained = evaluate_scene(make_eval_step(), state, ds, TRAIN_BATCH,
+                                 np.zeros(3), np.ones(3), dev)
+        pth = save_torch_checkpoint(state, osp.join(root, "smoke.pth.tar"),
+                                    cfg.max_epoch - 1)
+        loaded = run_eval(cfg, weights=pth, save_predictions=False,
+                          device=dev)["chess"]
+        check(np.array_equal(loaded.pred_poses, trained.pred_poses),
+              "run_eval of the exported .pth.tar differs from the trained "
+              "model's predictions")
+        phase("train", f"save_torch_checkpoint -> run_eval (fresh model, "
+              f"load_torch_weights strict): {len(ds)} predictions equal the "
+              "trained model's, bit for bit")
+    check_train_step_kernel_vs_plain(dev, root)
+    return launches
+
+
+def _flat_state(state) -> dict:
+    """Every tensor of a TrainState, by name (Adam's as name/key)."""
+    sd = state.state_dict()
+    flat = {f"model.{k}": v for k, v in sd["model"].items()}
+    flat.update({f"{g}.{k}": v for g in ("criterion", "criterion_R")
+                 for k, v in sd[g].items()})
+    for name, st in sd["optimizer"]["adam"].items():
+        flat.update({f"adam.{name}.{k}": torch.as_tensor(v)
+                     for k, v in st.items()})
+    return flat
+
+
+def run_bench_train() -> int:
+    """`bench_train.main` at batches 8 and 16, in process; returns the
+    attention kernel's launches."""
+    att_core.LAUNCHES = 0
+    out = bench_train.main(["--batches", "8,16", "--iters", str(ITERS)])
+    torch.cuda.synchronize()
+    launches = att_core.LAUNCHES
+    rows = out["train"]
+    check([r["batch"] for r in rows] == [8, 16] and all(
+        r["loss_finite"] and r["ms_per_step"] > 0
+        and 0.0 < r["mfu"] < 1.0
+        and r["attention_launches_per_step"] == 2 for r in rows),
+        f"bench_train: {out}")
+    check(launches > 0, "bench_train launched no attention kernel")
+    for r in rows:
+        phase("bench", f"bench_train.main batch {r['batch']}: "
+              f"{r['ms_per_step']} ms/step = {r['graphs_per_s']} graphs/s, "
+              f"mfu {r['mfu']} ({r['flops_per_step'] / 1e12} TFLOP per "
+              f"step), peak memory {r['peak_memory_gib']} GiB, attention "
+              f"launches per step {r['attention_launches_per_step']}")
+    phase("bench", f"bench_train attention kernel launches {launches}")
+    return launches
+
+
+def time_train(dev, card: str) -> dict:
+    """The R3 train step at batch 8 (bf16): step ms, graphs/s, peak
+    memory, a profiler window; the attention core's kernel forward and
+    eager backward at the step's shape (E = 512, C = 256, bf16)."""
+    cfg = train_config("")
+    tcfg = TrainerConfig()
+    state = create_train_state(build_model(cfg, dev), tcfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    n = cfg.seq_len
+    batch = {"images": torch.randn(TRAIN_BATCH, n, H, W, 3, device=dev,
+                                   generator=gen),
+             "poses": torch.randn(TRAIN_BATCH, n, 6, device=dev,
+                                  generator=gen),
+             "adj": (~torch.eye(n, dtype=torch.bool, device=dev)
+                     ).expand(TRAIN_BATCH, n, n).contiguous()}
+    train_step = make_train_step(tcfg)
+
+    def step():
+        return train_step(state, batch, SEED)
+
+    _util.reset_peak_memory(dev)
+    step_ms = median_ms(step)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    phase("time", f"R3 train step, batch {TRAIN_BATCH}, bf16, {H}x{W}, "
+          f"dense kNN-4 graph: {step_ms} ms = "
+          f"{TRAIN_BATCH / step_ms * 1e3} graphs/s; peak memory {peak} GiB "
+          f"({card})")
+    prof = profile_step("R3 train step", step, step_ms)
+    args = [torch.randn(512, 256, device=dev, generator=gen).to(
+        torch.bfloat16) for _ in range(3)]
+    y = att_core.attention_core(*args)
+    ybar = torch.randn(512, 256, device=dev, generator=gen)
+    ms = in_turns({
+        "forward": lambda: att_core.attention_core(*args),
+        "backward": lambda: att_core.attention_core_backward(*args, y, ybar),
+        "plain": lambda: att_core.attention_core_plain(*args)})
+    fwd_device = None if prof is None else sum(
+        v for k, v in prof["kernel_ms"].items() if "att_core_kernel" in k)
+    share = 2 * (ms["forward"] + ms["backward"]) / step_ms
+    phase("time", f"attention core in the train step (E=512 C=256 bf16, "
+          f"2 a step): kernel forward {ms['forward']} ms (on the device in "
+          f"the step's profile: {fwd_device} ms a step), eager backward "
+          f"{ms['backward']} ms, plain forward {ms['plain']} ms; "
+          f"forward + backward {share:.4f} of the step ({card})")
+    return {"train_step_ms": step_ms,
+            "train_graphs_per_s": TRAIN_BATCH / step_ms * 1e3,
+            "train_peak_memory_gib": peak,
+            "train_busy_ms": None if prof is None else prof["busy_ms"],
+            "train_idle_share": None if prof is None else prof["idle_share"],
+            "train_forward_ms": ms["forward"],
+            "train_backward_ms": ms["backward"],
+            "train_forward_device_ms_per_step": fwd_device}
+
+
+# ---------------------------------------------------------------------------
 # time
 # ---------------------------------------------------------------------------
 
@@ -1632,6 +2027,9 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    # cuBLAS reads it when its first handle is made: the train phase's
+    # resume check runs with deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1666,8 +2064,12 @@ def main() -> int:
             dev, model, netvlad, sizes, tmp)
         att_launches["multi-scene service"] = launches
     run_service_benches()
+    with tempfile.TemporaryDirectory() as tmp:
+        att_launches["train"] = run_train(dev, tmp)
+    att_launches["bench_train"] = run_bench_train()
 
     att_times = time_cached_eval(dev, model, card)
+    att_times.update(time_train(dev, card))
     variant_times, variant_bench_err = time_variants(dev, card,
                                                      variant_bench_ms)
     for mode, (svc, queries) in timed.items():

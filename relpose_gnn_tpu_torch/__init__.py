@@ -1,7 +1,8 @@
 """relpose_gnn_tpu_torch — the PyTorch / CUDA port of relpose_gnn_tpu.
 
 Runs the relocalization service (retrieval, neighbour selection, cached
-GNN step, database growth and snapshots) on one NVIDIA Hopper GPU (H100,
+GNN step, database growth and snapshots) and training (the train step,
+Adam, checkpoints, the experiment loop) on one NVIDIA Hopper GPU (H100,
 sm_90a).  It mirrors the JAX package's module paths and public names
 (`relpose_gnn_tpu/models/gnn.py::DenseEdgeGNN` <->
 `relpose_gnn_tpu_torch/models/gnn.py::DenseEdgeGNN`), keeps the JAX
@@ -19,15 +20,17 @@ which raises where there is no CUDA.  `device="cpu"` is an explicit
 request, the one the CPU parity tests make.
 
 Subpackages:
-  ops         dense graph ops; the CUDA kernels (attention core, fused
-              pair MLP), their wrappers and their build
+  ops         dense graph ops, quaternion algebra; the CUDA kernels
+              (attention core, with its autograd Function; fused pair MLP;
+              attention variants), their wrappers and their build
   models      ResNet trunk, BN folding, attention, GNN, RelPoseGNN, VGG16,
-              NetVLAD, weight conversion
-  data        input normalisation, packed graph stores
+              NetVLAD, weight and train-state conversion
+  data        input normalisation, packed graph stores, the training feed
   retrieval   neighbour subsampling, descriptor index
-  training    pose fusion (the trainer arrives with the training slice)
-  evaluation  the relocalization service, cached serving, pose errors
-  benchmarks  the fused pair-MLP bench
+  training    criteria, trainer, checkpoints, experiment loop, pose fusion
+  evaluation  the relocalization services, cached serving, pose errors
+  utils       logging and metrics
+  benchmarks  the kernel, service, eval and train benches
 """
 
 import torch

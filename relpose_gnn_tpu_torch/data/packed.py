@@ -2,8 +2,8 @@
 
 The port's own copy of `PackedGraphDataset` and `PackedGraphWriter` from the
 JAX package's `data/packed.py` (numpy only, same on-disk layout: a store
-written by either package reads byte for byte with the other's reader).
-`ConcatPackedDataset` arrives with the training feed.
+written by either package reads byte for byte with the other's reader),
+and of `ConcatPackedDataset`, the multi-scene training feed.
 
 The reference materializes one `data_NNNNNN.pt` pickle per query graph
 (dataset_7Scenes_multi.py:437-447) and pays a file open + unpickle per item.
@@ -153,3 +153,73 @@ class PackedGraphWriter:
                 json.dump(self._rel_paths, f)
         with open(osp.join(self.root, "meta.json"), "w") as f:
             json.dump(self.meta, f, indent=1)
+
+
+class ConcatPackedDataset:
+    """ConcatDataset over several scene splits (train.py:129).
+
+    Image dtypes must agree across the stores (the device normaliser
+    divides uint8 by 255 and nothing else), and so must the graph shapes;
+    both are checked once, here.  Poses and adjacency dtypes promote.
+    Every batch carries each row's own scene statistics (`norm_mean`,
+    `norm_std` [B, 3]): the reference normalises each scene with its own
+    stats.txt."""
+
+    def __init__(self, datasets: list[PackedGraphDataset]):
+        self.datasets = datasets
+        self._sizes = np.array([len(d) for d in datasets])
+        self._offsets = np.concatenate([[0], np.cumsum(self._sizes)])
+        self._dtypes: dict[str, np.dtype] = {}
+        for d in datasets:
+            if "images" in self._dtypes \
+                    and d.images.dtype != self._dtypes["images"]:
+                raise ValueError(
+                    f"mixed image dtypes across concatenated stores "
+                    f"({self._dtypes['images']} vs {d.images.dtype} in "
+                    f"{d.root}); rebuild the stores with one dtype "
+                    "(PackedGraphWriter dtype=)")
+            self._dtypes["images"] = d.images.dtype
+            for k, a in (("poses", d.poses), ("adj", d.adj)):
+                self._dtypes[k] = (
+                    a.dtype if k not in self._dtypes
+                    else np.promote_types(self._dtypes[k], a.dtype))
+        shapes = {d.root: d.images.shape[1:] for d in datasets}
+        if len(set(shapes.values())) > 1:
+            raise ValueError(
+                "concatenated stores have mixed graph shapes (num_nodes, "
+                f"H, W, C): { {k: tuple(v) for k, v in shapes.items()} }")
+        self._mean_rows = np.stack([d.mean for d in datasets]).astype(
+            np.float32)
+        self._std_rows = np.stack([d.std for d in datasets]).astype(
+            np.float32)
+
+    def __len__(self) -> int:
+        return int(self._offsets[-1])
+
+    def batch(self, indices: np.ndarray) -> dict:
+        """One gather per member store, its local indices sorted; rows
+        come back in the order asked, with their scene's statistics."""
+        indices = np.asarray(indices)
+        which = np.searchsorted(self._offsets, indices, side="right") - 1
+        local = indices - self._offsets[which]
+        out: dict[str, np.ndarray] = {}
+        for ds_idx in np.unique(which):
+            sel = np.flatnonzero(which == ds_idx)
+            order = np.argsort(local[sel], kind="stable")
+            rec = self.datasets[int(ds_idx)].batch(local[sel][order])
+            for k, arr in rec.items():
+                if k not in out:
+                    out[k] = np.empty((len(indices),) + arr.shape[1:],
+                                      self._dtypes.get(k, arr.dtype))
+                out[k][sel[order]] = arr
+        out["norm_mean"] = self._mean_rows[which]
+        out["norm_std"] = self._std_rows[which]
+        return out
+
+    @property
+    def mean(self):
+        return self.datasets[0].mean
+
+    @property
+    def std(self):
+        return self.datasets[0].std

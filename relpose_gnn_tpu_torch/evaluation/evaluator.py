@@ -1,7 +1,7 @@
 """Pose error statistics (numpy float64).
 
 Port of `relpose_gnn_tpu/evaluation/evaluator.py::{PoseErrors,
-compute_pose_errors}` (reference testing/test.py:236-276).  Re-implemented
+compute_pose_errors, save_poses}` (reference testing/test.py:236-276).  Re-implemented
 here because the JAX package's `evaluation` package imports jax.  Errors
 are computed in float64 on the host: float32 arccos noise near 0 degrees
 would bias small medians.
@@ -10,6 +10,7 @@ would bias small medians.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -66,3 +67,26 @@ def compute_pose_errors(pred6: np.ndarray, targ6: np.ndarray,
         t_errors=t_err, q_errors=q_err,
         pred_poses=np.concatenate([pred_t, pred_q], axis=1),
         targ_poses=np.concatenate([targ_t, targ_q], axis=1))
+
+
+def save_poses(save_dir: str, scene: str, errors: PoseErrors,
+               tag: str = "relpose_gnn_tpu",
+               rel_paths: list | None = None) -> str:
+    """Export predictions in the reference's npz convention, the median
+    errors in the file name (testing/test.py:38-42, :278-284); the
+    query-image paths under `rel_path` where given.  Returns the path."""
+    os.makedirs(save_dir, exist_ok=True)
+    fname = (f"{tag}_{scene}_{errors.median_t:.2f}_"
+             f"{errors.median_q:.1f}.npz")
+    path = os.path.join(save_dir, fname)
+    arrays = dict(
+        abs_t=errors.pred_poses[:, :3], abs_q=errors.pred_poses[:, 3:],
+        targ_t=errors.targ_poses[:, :3], targ_q=errors.targ_poses[:, 3:])
+    if rel_paths is not None:
+        if len(rel_paths) != len(errors.pred_poses):
+            raise ValueError(
+                f"len(rel_paths): {len(rel_paths)} != "
+                f"{len(errors.pred_poses)} len(pred_poses)")
+        arrays["rel_path"] = np.asarray(rel_paths)
+    np.savez(path, **arrays)
+    return path

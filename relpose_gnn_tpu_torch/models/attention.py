@@ -8,7 +8,10 @@ modules/att.py:7-34).  Per item, with C/8-dim projections g, theta, phi:
 
 The core runs through `ops.att_core.attention_core`, which picks the CUDA
 kernel or the plain version by the tensors' device; there is no other
-switch.  It is looked up on the module at call time, so a check can
+switch.  In training (grad enabled, weights that require grad) the same
+call goes through `att_core.AttentionCoreFunction`: the forward is still
+the kernel on the card, the backward the eager mirror of the JAX
+`_core_bwd`.  It is looked up on the module at call time, so a check can
 substitute `attention_core_plain` (e.g. `unittest.mock.patch.object`).
 """
 

@@ -5,7 +5,10 @@ of numpy arrays (what `jax.device_get` returns) and gives exactly the keys
 and values of `relpose_gnn_tpu/models/convert.py::export_relpose_gnn`, as
 torch tensors.  `netvlad_state_dict_from_jax` does the same for the
 NetVLAD retrieval encoder, with the released `netvlad_vgg16.tar` key names.
-Both are written without jax so the port never imports it.
+`train_state_from_jax` carries a whole JAX TrainState across (weights, BN
+statistics, criterion scalars, Adam moments), so that a test can start
+both frameworks' trainers from one state.  All are written without jax so
+the port never imports it.
 
 Layout rules (inverse of the JAX converter):
   conv   flax kernel [kH, kW, I, O]  ->  torch [O, I, kH, kW]
@@ -133,4 +136,89 @@ def netvlad_state_dict_from_jax(params: Mapping) -> dict:
     out["pool.conv.weight"] = _conv(pool["assign_conv"]["kernel"])
     if "bias" in pool["assign_conv"]:
         out["pool.conv.bias"] = _f32(pool["assign_conv"]["bias"])
+    return out
+
+
+def _stage_sizes(encoder_params: Mapping) -> tuple:
+    """Blocks per stage of a JAX ResNet parameter tree."""
+    sizes = []
+    for stage in range(1, 5):
+        n = sum(1 for k in encoder_params if k.startswith(f"layer{stage}_"))
+        if n:
+            sizes.append(n)
+    return tuple(sizes)
+
+
+def _scalars(tree: Mapping) -> dict:
+    return {k: _f32(v).reshape(()) for k, v in tree.items()}
+
+
+def _named_param_tree(tree: Mapping, batch_stats: Mapping,
+                      stages: tuple) -> dict:
+    """A JAX TrainState-shaped tree (params, or an Adam moment of them:
+    {"model", "criterion", "criterion_R"}) -> {parameter name: tensor},
+    the names of `training/trainer.py::named_param_groups`."""
+    model = state_dict_from_jax(tree["model"], batch_stats, stages)
+    out = {f"model.{k}": v for k, v in model.items()
+           if not k.endswith(("running_mean", "running_var",
+                              "num_batches_tracked"))}
+    for name in ("criterion", "criterion_R"):
+        out.update({f"{name}.{k}": v
+                    for k, v in _scalars(tree[name]).items()})
+    return out
+
+
+def _walk(state):
+    """Yield the optax states nested in an opt_state (tuples, named
+    tuples, MultiSteps' inner state)."""
+    yield state
+    inner = getattr(state, "inner_opt_state", None)
+    if inner is not None:
+        yield from _walk(inner)
+    elif isinstance(state, tuple) and not hasattr(state, "_fields"):
+        for s in state:
+            yield from _walk(s)
+
+
+def train_state_from_jax(params: Mapping, batch_stats: Mapping,
+                         opt_state=None) -> dict:
+    """A JAX TrainState's parts -> what `training/trainer.py::TrainState.
+    load_state_dict` takes.
+
+    params: {"model", "criterion", "criterion_R"} as the JAX
+    `create_train_state` lays them out; batch_stats: the model's; both as
+    nested dicts of numpy arrays (`jax.device_get`).  opt_state, when
+    given: the optax state of `make_optimizer` (any of its forms: with
+    `zero_nans`, under `MultiSteps`), numpy leaves; its Adam `mu`, `nu`
+    and `count`, the schedule's count and MultiSteps' `mini_step` and
+    accumulated gradients carry over.  The step count stays 0."""
+    stages = _stage_sizes(params["model"]["encoder"])
+    out = {"model": state_dict_from_jax(params["model"], batch_stats,
+                                        stages),
+           "criterion": _scalars(params["criterion"]),
+           "criterion_R": _scalars(params["criterion_R"])}
+    if opt_state is None:
+        return out
+    adam = updates = mini_step = acc = None
+    for s in _walk(opt_state):
+        fields = getattr(s, "_fields", ())
+        if "mu" in fields and "nu" in fields:
+            adam = s
+        elif "mini_step" in fields:
+            mini_step = int(np.asarray(s.mini_step))
+            acc = _named_param_tree(s.acc_grads, batch_stats, stages)
+        elif "count" in fields:
+            updates = int(np.asarray(s.count))
+    if adam is None:
+        raise ValueError("opt_state holds no Adam state (mu, nu, count)")
+    count = int(np.asarray(adam.count))
+    mu = _named_param_tree(adam.mu, batch_stats, stages)
+    nu = _named_param_tree(adam.nu, batch_stats, stages)
+    out["optimizer"] = {
+        "adam": {} if count == 0 else {
+            k: {"step": torch.tensor(float(count)), "exp_avg": mu[k],
+                "exp_avg_sq": nu[k]} for k in mu},
+        "updates": count if updates is None else updates,
+        "mini_step": mini_step or 0,
+        "acc": acc if mini_step else None}
     return out

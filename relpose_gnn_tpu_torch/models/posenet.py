@@ -1,4 +1,4 @@
-"""RelPoseGNN, the relative-pose regression model (PyTorch, inference).
+"""RelPoseGNN, the relative-pose regression model (PyTorch).
 
 Port of `relpose_gnn_tpu/models/posenet.py` (`RelPoseGNNConfig`,
 `RelPoseGNN.encode_nodes`, `RelPoseGNN.from_embeddings`): ResNet node
@@ -15,8 +15,15 @@ Parameter names are the reference PoseNetX_R2 state dict's
 `fc_xyz_R`, `fc_wpqr_R`), so `load_state_dict(strict=True)` takes
 `models/convert.py::state_dict_from_jax` output and the JAX exporter's.
 
-This slice is the eval path: dropout is the identity (the JAX model's
-deterministic eval).  What the JAX config offers beyond it raises
+`train=True` is the training forward: BatchNorm on batch statistics
+(running ones updated, models/resnet.py) and dropout after the GNN with
+flax's semantics (keep with probability 1 - rate, scale kept values by
+1 / (1 - rate); separate draws for x and e).  Dropout also fires at eval
+with `eval_dropout=True`, the reference's quirk.  Its masks come from the
+`generator` the caller passes, never from the global RNG.  `remat=True`
+recomputes the backbone's activations in the backward
+(`torch.utils.checkpoint`); the recomputation leaves the BN running
+statistics alone.  What the JAX config offers beyond this raises
 NotImplementedError naming the ROADMAP.md queue that will bring it.
 """
 
@@ -28,6 +35,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from relpose_gnn_tpu_torch.models.attention import AttentionBlock
 from relpose_gnn_tpu_torch.models.dense import dense
@@ -41,7 +49,7 @@ _STAGES = {"resnet34": (3, 4, 6, 3), "resnet18": (2, 2, 2, 2)}
 @dataclasses.dataclass(frozen=True)
 class RelPoseGNNConfig:
     """Static hyperparameters; the same fields and presets as the JAX
-    config, minus the training-only and not-yet-ported knobs."""
+    config, minus the not-yet-ported knobs (s2d_stem, vit_layer_scale)."""
 
     num_nodes: int = 8
     feat_dim: int = 2048
@@ -57,6 +65,7 @@ class RelPoseGNNConfig:
     eval_dropout: bool = False  # the reference's dropout-at-eval quirk
     backbone: str = "resnet34"
     dtype: torch.dtype | None = None  # compute dtype (torch.bfloat16 to serve)
+    remat: bool = False         # recompute the backbone in the backward
     bn_folded: bool = False     # serving form: BN folded into the convs
     compact_edges: bool = False  # GNN on the compact edge list
 
@@ -78,11 +87,6 @@ class RelPoseGNNConfig:
 
 
 def _refuse_unported(c: RelPoseGNNConfig) -> None:
-    if c.eval_dropout:
-        raise NotImplementedError(
-            "eval_dropout=True (stochastic dropout at eval) needs the "
-            "dropout RNG of the training slice: ROADMAP.md, 'Modules to "
-            "port', training")
     if c.backbone not in _STAGES:
         raise NotImplementedError(
             f"backbone={c.backbone!r}: only resnet34/resnet18 are ported; "
@@ -113,20 +117,58 @@ class RelPoseGNN(nn.Module):
         self.fc_xyz_R = nn.Linear(c.edge_dim, 3)
         self.fc_wpqr_R = nn.Linear(c.edge_dim, 3)
 
-    def encode_nodes(self, images: torch.Tensor) -> torch.Tensor:
+    def encode_nodes(self, images: torch.Tensor,
+                     train: bool = False) -> torch.Tensor:
         """[B, N, H, W, 3] -> float32 [B, N, feat_dim]."""
         b, n = images.shape[:2]
         flat = images.reshape((b * n,) + images.shape[2:])
-        return self.feature_extractor(flat).reshape(b, n, -1).float()
+        if self.cfg.remat and train and torch.is_grad_enabled():
+            # the backward reruns the backbone; only the first run may
+            # fold its batch statistics into the running ones
+            first = [True]
 
-    def forward(self, images: torch.Tensor, adj: torch.Tensor):
-        return self.from_embeddings(self.encode_nodes(images), adj)
+            def run(x):
+                out = self.feature_extractor(x, True, first[0])
+                first[0] = False
+                return out
 
-    def from_embeddings(self, x: torch.Tensor, adj: torch.Tensor):
+            feats = torch.utils.checkpoint.checkpoint(run, flat,
+                                                      use_reentrant=False)
+        else:
+            feats = self.feature_extractor(flat, train)
+        return feats.reshape(b, n, -1).float()
+
+    def forward(self, images: torch.Tensor, adj: torch.Tensor,
+                train: bool = False,
+                generator: torch.Generator | None = None):
+        return self.from_embeddings(self.encode_nodes(images, train), adj,
+                                    train=train, generator=generator)
+
+    def _dropout(self, x: torch.Tensor,
+                 generator: torch.Generator | None) -> torch.Tensor:
+        """flax `nn.Dropout`: keep with probability 1 - rate and scale
+        what is kept by 1 / (1 - rate); the mask is drawn from
+        `generator`."""
+        if generator is None:
+            raise ValueError("dropout is active (train=True or "
+                             "eval_dropout=True with droprate > 0) and "
+                             "needs a torch.Generator")
+        keep_prob = 1.0 - self.cfg.droprate
+        if keep_prob == 0.0:
+            return torch.zeros_like(x)
+        keep = torch.rand(x.shape, generator=generator,
+                          device=generator.device) < keep_prob
+        return torch.where(keep.to(x.device), x / keep_prob,
+                           torch.zeros_like(x))
+
+    def from_embeddings(self, x: torch.Tensor, adj: torch.Tensor,
+                        train: bool = False,
+                        generator: torch.Generator | None = None):
         """[B, N, feat] node embeddings -> (pred_abs, pred_rel, adj, aux).
 
         aux["node_feats"] is the PRE-GNN x: the kNN graph is built from it
-        and the eval anchor is its nearest neighbour of node 0."""
+        and the eval anchor is its nearest neighbour of node 0.  Dropout
+        (train or eval_dropout) draws its masks from `generator`."""
         c = self.cfg
         if c.use_attention:
             x = self.att(x)
@@ -154,6 +196,10 @@ class RelPoseGNN(nn.Module):
             x, e = layer(x, e, adj, edges=edges)
             x = F.relu(x)
             e = F.relu(e)
+
+        if c.droprate > 0 and (train or c.eval_dropout):
+            x = self._dropout(x, generator)
+            e = self._dropout(e, generator)
 
         pred_abs = torch.cat([dense(x, self.fc_xyz),
                               dense(x, self.fc_wpqr)], dim=-1)

@@ -14,12 +14,20 @@ loads the `feature_extractor.*` part of a PoseNetX_R2 state dict.
   and `fc` run in float32, as in the JAX module.
 * `folded=True` is the serving form: BN folded into the convs
   (models/fold_bn.py), convs carry a bias, no BN modules.
-* Inference only: BN always uses its running statistics.  The train-mode
-  forward arrives with the training slice.
+* BatchNorm has flax's semantics in both modes.  It normalises in
+  float32 whatever the compute dtype and casts the result to it.  Eval
+  (`train=False`) uses the float32 running statistics as they are (no
+  copies in the compute dtype).  Train uses the batch's biased mean and
+  variance and updates the running buffers once per forward as flax's
+  `BatchNorm(momentum=0.9)` does: `ra = 0.9 ra + 0.1 stat`, with the
+  BIASED variance (`F.batch_norm(training=True)` would store the
+  unbiased one, so it is given no buffers).  `num_batches_tracked`
+  stays 0, as in the JAX exporter's state dicts.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -35,13 +43,32 @@ def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     return F.conv2d(x, conv.weight.to(dt), bias, conv.stride, conv.padding)
 
 
-def _bn(x: torch.Tensor, bn: nn.BatchNorm2d | None) -> torch.Tensor:
+# flax's BatchNorm momentum: the share of the old running statistic kept
+_BN_MOMENTUM = 0.9
+
+
+def _bn(x: torch.Tensor, bn: nn.BatchNorm2d | None, train: bool = False,
+        update_stats: bool = True) -> torch.Tensor:
+    """BatchNorm over NCHW `x`, computed in float32 and cast back to
+    x.dtype.  train: normalise with the batch's statistics and, if
+    `update_stats`, fold them into the running buffers; else normalise
+    with the running buffers."""
     if bn is None:
         return x
-    dt = x.dtype
-    return F.batch_norm(x, bn.running_mean.to(dt), bn.running_var.to(dt),
-                        bn.weight.to(dt), bn.bias.to(dt), training=False,
-                        eps=bn.eps)
+    x32 = x.float()
+    if not train:
+        return F.batch_norm(x32, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, training=False, eps=bn.eps).to(x.dtype)
+    y = F.batch_norm(x32, None, None, bn.weight, bn.bias, training=True,
+                     eps=bn.eps)
+    if update_stats:
+        with torch.no_grad():
+            var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
+            bn.running_mean.mul_(_BN_MOMENTUM).add_(
+                mean, alpha=1 - _BN_MOMENTUM)
+            bn.running_var.mul_(_BN_MOMENTUM).add_(
+                var, alpha=1 - _BN_MOMENTUM)
+    return y.to(x.dtype)
 
 
 class BasicBlock(nn.Module):
@@ -61,21 +88,26 @@ class BasicBlock(nn.Module):
                 layers.append(nn.BatchNorm2d(planes, eps=_BN_EPS))
             self.downsample = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(_bn(_conv(x, self.conv1), self.bn1))
-        y = _bn(_conv(y, self.conv2), self.bn2)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                update_stats: bool = True) -> torch.Tensor:
+        bn = functools.partial(_bn, train=train, update_stats=update_stats)
+        y = F.relu(bn(_conv(x, self.conv1), self.bn1))
+        y = bn(_conv(y, self.conv2), self.bn2)
         residual = x
         if self.downsample is not None:
             residual = _conv(x, self.downsample[0])
-            residual = _bn(residual, self.downsample[1]
-                           if len(self.downsample) > 1 else None)
+            residual = bn(residual, self.downsample[1]
+                          if len(self.downsample) > 1 else None)
         return F.relu(y + residual)
 
 
 class ResNet(nn.Module):
     """BasicBlock ResNet trunk + mean pool + `fc` projection.
 
-    forward: [B, H, W, 3] NHWC -> float32 [B, feat_dim]."""
+    forward: [B, H, W, 3] NHWC -> float32 [B, feat_dim]; `train` picks
+    batch statistics for BN and updates the running ones unless
+    `update_stats` is False (a recomputation under
+    `torch.utils.checkpoint` passes False)."""
 
     def __init__(self, stage_sizes: Sequence[int], feat_dim: int = 2048,
                  dtype: torch.dtype | None = None, folded: bool = False):
@@ -95,12 +127,14 @@ class ResNet(nn.Module):
         self.num_stages = len(stage_sizes)
         self.fc = nn.Linear(in_planes, feat_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                update_stats: bool = True) -> torch.Tensor:
         x = x.to(self.dtype or x.dtype).permute(0, 3, 1, 2)  # NCHW view
-        x = F.relu(_bn(_conv(x, self.conv1), self.bn1))
+        x = F.relu(_bn(_conv(x, self.conv1), self.bn1, train, update_stats))
         # pads with -inf, like flax max_pool's padding=((1, 1), (1, 1))
         x = F.max_pool2d(x, 3, 2, 1)
         for stage in range(self.num_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+            for block in getattr(self, f"layer{stage + 1}"):
+                x = block(x, train, update_stats)
         x = torch.mean(x.float(), dim=(2, 3))
         return F.linear(x, self.fc.weight, self.fc.bias)

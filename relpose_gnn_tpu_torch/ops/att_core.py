@@ -8,9 +8,14 @@ it on every GNN message.  The kernel is `csrc/att_core.cu`; its source
 comment says what bounds it and how it is laid out.
 
 `attention_core` decides by the tensors' device: CPU tensors take
-`attention_core_plain`; CUDA tensors launch the kernel or raise.  The
-kernel is forward-only: the backward (an eager mirror of the JAX
-`_core_bwd`) arrives with the training slice.
+`attention_core_plain`; CUDA tensors launch the kernel or raise.  When
+grad is enabled and an input requires it, the call goes through
+`AttentionCoreFunction`, the counterpart of the JAX custom VJP `_core`
+(att_pallas.py:91-125): the forward is the same kernel (or, for CPU
+tensors, the plain version), the backward `attention_core_backward` is an
+eager mirror of `_core_bwd`, which is plain XLA in the JAX package too.
+It materialises [E, C, C] in float32 (128 MiB per tensor at E = 512,
+C = 256), as the JAX backward does.
 """
 
 from __future__ import annotations
@@ -75,12 +80,43 @@ def _check_kernel_inputs(phi, theta, g, what: str = "attention_core") -> None:
     c = phi.shape[1]
     if not 1 <= c <= _MAX_C:
         raise ValueError(f"{what}: C={c} outside [1, {_MAX_C}]")
-    if torch.is_grad_enabled() and any(
-            a.requires_grad for a in (phi, theta, g)):
-        raise RuntimeError(
-            f"{what}: the CUDA kernel is inference-only (no "
-            "backward yet); call it under torch.inference_mode() or "
-            "torch.no_grad()")
+
+
+def attention_core_backward(phi: torch.Tensor, theta: torch.Tensor,
+                            g: torch.Tensor, y: torch.Tensor,
+                            ybar: torch.Tensor) -> tuple:
+    """The VJP of the attention core, `_core_bwd`'s formulas in float32:
+    with w = softmax_j(f), f_ij = phi_i * theta_j,
+        gbar_j     = sum_i w_ij ybar_i
+        fbar_ij    = ybar_i * w_ij * (g_j - y_i)
+        phibar_i   = sum_j fbar_ij theta_j
+        thetabar_j = sum_i fbar_ij phi_i
+    `y` is the forward's output.  Returns (phibar, thetabar, gbar), each
+    cast to its input's dtype."""
+    p32, t32, g32 = (a.float() for a in (phi, theta, g))
+    yb = ybar.float()
+    w = torch.softmax(p32[..., :, None] * t32[..., None, :], dim=-1)
+    gbar = torch.einsum("eij,ei->ej", w, yb)
+    fbar = yb[..., :, None] * w * (g32[..., None, :] - y.float()[..., :, None])
+    phibar = torch.einsum("eij,ej->ei", fbar, t32)
+    thetabar = torch.einsum("eij,ei->ej", fbar, p32)
+    return (phibar.to(phi.dtype), thetabar.to(theta.dtype), gbar.to(g.dtype))
+
+
+class AttentionCoreFunction(torch.autograd.Function):
+    """The attention core under autograd: `_forward` (the kernel on CUDA
+    tensors, the plain version on CPU tensors) and the eager backward.
+    Saves (phi, theta, g, y) as the JAX `_core_fwd` does."""
+
+    @staticmethod
+    def forward(ctx, phi, theta, g):
+        y = _forward(phi, theta, g)
+        ctx.save_for_backward(phi, theta, g, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, ybar):
+        return attention_core_backward(*ctx.saved_tensors, ybar)
 
 
 def attention_core(phi: torch.Tensor, theta: torch.Tensor,
@@ -89,7 +125,17 @@ def attention_core(phi: torch.Tensor, theta: torch.Tensor,
 
     CPU tensors: `attention_core_plain`.  CUDA tensors (float32 or
     bfloat16, contiguous, 1 <= C <= 1024): the kernel, launched on the
-    current stream; anything it cannot take raises."""
+    current stream; anything it cannot take raises.  Differentiable:
+    with grad enabled and an input that requires it, through
+    `AttentionCoreFunction` (same forward, eager backward)."""
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (phi, theta, g)):
+        return AttentionCoreFunction.apply(phi, theta, g)
+    return _forward(phi, theta, g)
+
+
+def _forward(phi: torch.Tensor, theta: torch.Tensor,
+             g: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
     if phi.device.type == "cpu":
         return attention_core_plain(phi, theta, g)

@@ -183,6 +183,11 @@ def _run(key: str, form: int, phi, theta, g) -> torch.Tensor:
     if phi.device.type == "cpu":
         return PLAIN[form](phi, theta, g)
     _check_kernel_inputs(phi, theta, g, what=key)
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (phi, theta, g)):
+        raise RuntimeError(
+            f"{key}: the CUDA kernel is inference-only (no backward); "
+            "call it under torch.inference_mode() or torch.no_grad()")
     e, c = phi.shape
     y = torch.empty((e, c), dtype=torch.float32, device=phi.device)
     if e == 0:

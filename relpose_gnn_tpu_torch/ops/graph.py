@@ -195,3 +195,24 @@ def nearest_neighbor(x: torch.Tensor, node: int = 0) -> torch.Tensor:
 def relative_pose_targets(p: torch.Tensor) -> torch.Tensor:
     """RP[s, t] = p[s] - p[t]: [..., N, D] -> [..., N, N, D]."""
     return p[..., :, None, :] - p[..., None, :, :]
+
+
+def edge_dropout_mask(generator: torch.Generator, n: int, keep_prob: float,
+                      batch_shape: tuple = ()) -> torch.Tensor:
+    """Symmetric random edge-keep mask [*batch_shape, N, N] over undirected
+    pairs: each pair s < t is kept with probability `keep_prob` (one
+    uniform draw from `generator`, on its device) and mirrored; the
+    diagonal is never kept.  A graph may lose every edge: callers pass
+    the mask through `ensure_nonempty` (training/train.py:238-247)."""
+    u = torch.rand(tuple(batch_shape) + (n, n), generator=generator,
+                   device=generator.device)
+    upper = torch.ones(n, n, dtype=torch.bool, device=u.device).triu(1)
+    keep_u = (u < keep_prob) & upper
+    return keep_u | keep_u.transpose(-1, -2)
+
+
+def ensure_nonempty(mask: torch.Tensor) -> torch.Tensor:
+    """Restore every edge of a graph whose mask dropped them all
+    (training/train.py:240-241)."""
+    any_edge = torch.any(mask.flatten(-2), dim=-1)[..., None, None]
+    return torch.where(any_edge, mask, torch.ones_like(mask))

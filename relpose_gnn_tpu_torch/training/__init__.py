@@ -1,1 +1,2 @@
-"""Pose fusion for evaluation (the trainer comes with the training slice)."""
+"""Training: criteria, the trainer (train and eval steps, Adam), checkpoints
+and the experiment loop (run_training, run_eval)."""

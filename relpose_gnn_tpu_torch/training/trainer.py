@@ -1,14 +1,285 @@
-"""Pose fusion for evaluation (PyTorch).
+"""Train and eval steps, the optimizer, pose fusion (PyTorch).
 
-Port of two functions of `relpose_gnn_tpu/training/trainer.py`:
-`fuse_pose_estimates` and `check_fuse_ok`, which the cached-serving step
-uses.  The trainer itself (train and eval steps, edge dropout) arrives with
-the training slice.
+Port of `relpose_gnn_tpu/training/trainer.py`.  The JAX train step is one
+jitted program (forward, masked homoscedastic L1, gradients, Adam); here it
+is the same work in eager PyTorch on the card:
+
+  * `TrainState` holds the model, the two learnable criterion sets
+    (`criterion` for the absolute head, `criterion_R` for the relative
+    one), the `Optimizer` and the number of train steps taken.
+  * `make_optimizer` is optax's chain around one `torch.optim.Adam`:
+    `zero_nans` (NaN -> 0 on the gradients, infinities left alone) if
+    `filter_nans`, `add_decayed_weights` (torch Adam's `weight_decay`, on
+    every parameter, criterion scalars included), `scale_by_adam`, and the
+    reference's staircase decay (x `lr_decay` every `lr_decay_step`
+    epochs), counted in OPTIMIZER updates; `grad_accum` > 1 averages k
+    micro-batches first, as `optax.MultiSteps` does (running mean).
+  * Dropout and edge dropout draw from `torch.Generator`s seeded by
+    (seed, step), the counterpart of `fold_in(rng, state.step)`: a step's
+    draws depend on the step alone, so a resumed run draws what the
+    uninterrupted one did.  The draws are the port's own; `jax.random`'s
+    cannot be reproduced.
+
+Quirk (train.py:238-247): the reference's train-time edge dropout masks only
+`data.edge_attr`, which the production model never reads: a no-op.
+`edge_dropout_effective=False` (default) keeps that; True applies the mask
+to the adjacency.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+import torch.nn as nn
+
+from relpose_gnn_tpu_torch.models.posenet import RelPoseGNN
+from relpose_gnn_tpu_torch.ops import graph as graph_ops
+from relpose_gnn_tpu_torch.retrieval.subsample import fold_in
+from relpose_gnn_tpu_torch.training import criterion as crit
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    """Hyperparameters; the JAX TrainerConfig's fields and defaults
+    (train.py:44-77 and its argparse)."""
+
+    lr: float = 1e-4
+    lr_decay: float = 0.1
+    lr_decay_step: int = 50          # epochs between decays
+    weight_decay: float = 5e-4
+    sax: float = 0.0
+    saq: float = -2.0
+    srx: float = 0.0
+    srq: float = -2.0
+    lambda_ap: float = 0.0           # absolute-pose loss weight
+    use_vo_loss: bool = True
+    edge_keep_factor: float = 0.5
+    edge_dropout_effective: bool = False  # replicate the no-op quirk
+    filter_nans: bool = False        # zero NaN gradients before Adam
+    steps_per_epoch: int = 1000
+    grad_accum: int = 1
+
+
+class Optimizer:
+    """What `make_optimizer` returns: optax's chain (module docstring)
+    around one `torch.optim.Adam` whose param groups are the reference's
+    three (model, criterion, criterion_R).
+
+    `updates` counts optimizer updates (the schedule's count), `mini_step`
+    the micro-batches folded into `acc` since the last update."""
+
+    def __init__(self, cfg: TrainerConfig,
+                 named_groups: list[list[tuple[str, nn.Parameter]]]):
+        self.cfg = cfg
+        self.names = [n for group in named_groups for n, _ in group]
+        self.params = [p for group in named_groups for _, p in group]
+        self.adam = torch.optim.Adam(
+            [{"params": [p for _, p in group]} for group in named_groups],
+            lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=cfg.weight_decay)
+        updates_per_epoch = max(1, cfg.steps_per_epoch
+                                // max(1, cfg.grad_accum))
+        self.transition = cfg.lr_decay_step * updates_per_epoch
+        self.updates = 0
+        self.mini_step = 0
+        self.acc: list[torch.Tensor] | None = None
+
+    def lr(self) -> float:
+        """The learning rate of the next update (staircase decay)."""
+        if self.transition <= 0:
+            return self.cfg.lr
+        return self.cfg.lr * self.cfg.lr_decay ** (self.updates
+                                                   // self.transition)
+
+    def step(self) -> bool:
+        """Take the gradients in `.grad` (after a backward); update the
+        parameters if this completes `grad_accum` micro-batches.  Returns
+        whether they were updated."""
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in self.params]
+        k = self.cfg.grad_accum
+        if k > 1:
+            if self.acc is None:
+                self.acc = [torch.zeros_like(p) for p in self.params]
+            n = self.mini_step
+            self.acc = [a + (g - a) / (n + 1) for a, g in zip(self.acc,
+                                                              grads)]
+            self.mini_step = (n + 1) % k
+            if self.mini_step:
+                return False
+            grads, self.acc = self.acc, None
+        for p, g in zip(self.params, grads):
+            if self.cfg.filter_nans:
+                g = torch.where(torch.isnan(g), torch.zeros_like(g), g)
+            p.grad = g
+        lr = self.lr()
+        for group in self.adam.param_groups:
+            group["lr"] = lr
+        self.adam.step()
+        self.updates += 1
+        return True
+
+    def state_dict(self) -> dict:
+        """Adam's moments and step by parameter name, the counts and the
+        accumulated gradients: everything an exact resume needs."""
+        adam = {}
+        for name, p in zip(self.names, self.params):
+            st = self.adam.state.get(p)
+            if st:
+                adam[name] = {k: v.detach().clone() if torch.is_tensor(v)
+                              else v for k, v in st.items()}
+        return {"adam": adam, "updates": self.updates,
+                "mini_step": self.mini_step,
+                "acc": None if self.acc is None else dict(zip(
+                    self.names, (a.detach().clone() for a in self.acc)))}
+
+    def load_state_dict(self, sd: dict) -> None:
+        by_name = dict(zip(self.names, self.params))
+        unknown = sorted(set(sd["adam"]) - set(by_name))
+        if unknown:
+            raise ValueError(f"optimizer state for unknown parameters "
+                             f"{unknown[:6]}")
+        self.adam.state.clear()
+        for name, st in sd["adam"].items():
+            p = by_name[name]
+            self.adam.state[p] = {
+                "step": torch.as_tensor(st["step"],
+                                        dtype=torch.float32).clone(),
+                "exp_avg": st["exp_avg"].to(p.device, p.dtype).clone(),
+                "exp_avg_sq": st["exp_avg_sq"].to(p.device,
+                                                  p.dtype).clone()}
+        self.updates = int(sd["updates"])
+        self.mini_step = int(sd["mini_step"])
+        self.acc = (None if sd["acc"] is None else
+                    [sd["acc"][n].to(p.device, p.dtype).clone()
+                     for n, p in zip(self.names, self.params)])
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its BN running statistics are buffers), the criterion
+    scalars, the optimizer and the number of train steps taken (micro
+    steps, as the JAX `state.step`)."""
+
+    model: RelPoseGNN
+    criterion: nn.ParameterDict
+    criterion_R: nn.ParameterDict
+    optimizer: Optimizer
+    step: int = 0
+
+    def state_dict(self) -> dict:
+        """Everything `load_state_dict` needs for an exact resume; tensors
+        are copies, on their devices."""
+        return {"model": {k: v.detach().clone()
+                          for k, v in self.model.state_dict().items()},
+                "criterion": {k: v.detach().clone()
+                              for k, v in self.criterion.items()},
+                "criterion_R": {k: v.detach().clone()
+                                for k, v in self.criterion_R.items()},
+                "optimizer": self.optimizer.state_dict(),
+                "step": self.step}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Load a `state_dict()` (or `models/convert.py::
+        train_state_from_jax` output).  The model loads with strict=True;
+        missing "optimizer" or "step" leave those as they are."""
+        self.model.load_state_dict(sd["model"], strict=True)
+        with torch.no_grad():
+            for name in ("criterion", "criterion_R"):
+                own = getattr(self, name)
+                if set(sd[name]) != set(own):
+                    raise ValueError(f"{name}: keys {sorted(sd[name])} != "
+                                     f"{sorted(own)}")
+                for k, v in sd[name].items():
+                    own[k].copy_(torch.as_tensor(v))
+        if "optimizer" in sd:
+            self.optimizer.load_state_dict(sd["optimizer"])
+        if "step" in sd:
+            self.step = int(sd["step"])
+
+
+def named_param_groups(model: nn.Module, criterion: nn.ParameterDict,
+                       criterion_R: nn.ParameterDict) -> list:
+    """The reference's three param groups, as (name, parameter) pairs."""
+    return [[(f"model.{n}", p) for n, p in model.named_parameters()],
+            [(f"criterion.{n}", p) for n, p in criterion.items()],
+            [(f"criterion_R.{n}", p) for n, p in criterion_R.items()]]
+
+
+def make_optimizer(cfg: TrainerConfig, model: nn.Module,
+                   criterion: nn.ParameterDict,
+                   criterion_R: nn.ParameterDict) -> Optimizer:
+    return Optimizer(cfg, named_param_groups(model, criterion, criterion_R))
+
+
+def create_train_state(model: RelPoseGNN, cfg: TrainerConfig) -> TrainState:
+    """A fresh TrainState around `model` (weights as they are): criterion
+    scalars from the config, on the model's device, a fresh optimizer."""
+    device = next(model.parameters()).device
+    criterion = crit.init_criterion_params(cfg.sax, cfg.saq, device=device)
+    criterion_R = crit.init_criterion_params(cfg.srx, cfg.srq, device=device)
+    return TrainState(model, criterion, criterion_R,
+                      make_optimizer(cfg, model, criterion, criterion_R))
+
+
+def step_generators(seed: int, step: int, device: torch.device
+                    ) -> tuple[torch.Generator, torch.Generator]:
+    """(dropout, edge dropout) generators of train step `step`, on
+    `device`: functions of (seed, step) alone."""
+    s = fold_in(seed, step)
+    return tuple(torch.Generator(device=device).manual_seed(fold_in(s, k))
+                 for k in (0, 1))
+
+
+def loss_fn(state: TrainState, batch: dict, generator: torch.Generator,
+            cfg: TrainerConfig) -> tuple[torch.Tensor, dict]:
+    """Training forward + homoscedastic relative-pose loss
+    (train.py:255-264).  Updates the BN running statistics."""
+    pred_abs, pred_rel, adj, _ = state.model(batch["images"], batch["adj"],
+                                             train=True, generator=generator)
+    target_rel = graph_ops.relative_pose_targets(batch["poses"])
+    loss_r, t_loss, q_loss = crit.pose_net_criterion(
+        state.criterion_R, pred_rel, target_rel, mask=adj)
+    if cfg.use_vo_loss:
+        total = loss_r
+    else:
+        total, t_loss, q_loss = crit.pose_net_criterion(
+            state.criterion, pred_abs, batch["poses"])
+    if cfg.lambda_ap > 0:
+        abs_loss, _, _ = crit.pose_net_criterion(state.criterion, pred_abs,
+                                                 batch["poses"])
+        total = total + cfg.lambda_ap * abs_loss
+    metrics = {"loss": total, "t_loss": t_loss, "q_loss": q_loss,
+               "sax_R": state.criterion_R["sax"],
+               "saq_R": state.criterion_R["saq"]}
+    return total, {k: v.detach().clone() for k, v in metrics.items()}
+
+
+def make_train_step(cfg: TrainerConfig):
+    """train_step(state, batch, seed) -> metrics (tensors on the device,
+    not synchronised): forward, loss, backward, optimizer, step + 1.
+    `batch` holds normalised float images [B, N, H, W, 3], poses
+    [B, N, 6] and a bool adjacency [B, N, N] on the model's device."""
+
+    def train_step(state: TrainState, batch: dict, seed: int) -> dict:
+        device = batch["images"].device
+        drop_gen, edge_gen = step_generators(seed, state.step, device)
+        if cfg.edge_dropout_effective:
+            adj = batch["adj"]
+            keep = graph_ops.edge_dropout_mask(
+                edge_gen, adj.shape[-1], cfg.edge_keep_factor,
+                batch_shape=adj.shape[:-2])
+            batch = dict(batch, adj=adj & graph_ops.ensure_nonempty(keep))
+        for p in state.optimizer.params:
+            p.grad = None
+        total, metrics = loss_fn(state, batch, drop_gen, cfg)
+        total.backward()
+        state.optimizer.step()
+        state.step += 1
+        return metrics
+
+    return train_step
 
 
 def fuse_pose_estimates(est: torch.Tensor, mask: torch.Tensor,
@@ -52,3 +323,48 @@ def check_fuse_ok(out: dict, where: str) -> None:
             "mask; fuse='mean'/'median' would silently produce an all-zero "
             "pose or a +inf median for it.  The adjacency feeding this "
             "eval is pathological (or was rebuilt with knn too small)")
+
+
+def make_eval_step(ref_node: int = 0, fuse: str = "first",
+                   static_anchor: int | None = None):
+    """eval_step(state, batch) -> {pred [B, 6], target [B, 6], pred_abs
+    [B, 6], nbr [B]} (+ `fuse_ok` for 'mean'/'median'), under
+    inference_mode, BN on running statistics.
+
+    fuse='first' (reference parity, testing/test.py:227-233): the query's
+    pose from ONE relative pose, anchored at `static_anchor` if given (the
+    knn=0 protocol) else at the query's nearest neighbour in pre-GNN
+    feature space: `poses[nbr] - pred_rel[nbr, ref]`.  'mean' / 'median'
+    fuse every incoming estimate `poses[s] - pred_rel[s, ref]` over the
+    edges s -> ref of the effective adjacency."""
+    if fuse not in ("first", "mean", "median"):
+        raise ValueError(f"fuse={fuse!r} (want 'first', 'mean' or "
+                         "'median')")
+
+    @torch.inference_mode()
+    def eval_step(state: TrainState, batch: dict) -> dict:
+        pred_abs, pred_rel, adj, aux = state.model(batch["images"],
+                                                   batch["adj"])
+        b = pred_rel.shape[0]
+        rows = torch.arange(b, device=pred_rel.device)
+        if static_anchor is not None:
+            nbr = torch.full((b,), static_anchor, dtype=torch.int64,
+                             device=pred_rel.device)
+        else:
+            nbr = graph_ops.nearest_neighbor(aux["node_feats"],
+                                             node=ref_node)
+        poses = batch["poses"]
+        out = {}
+        if fuse == "first":
+            pred_query = poses[rows, nbr] - pred_rel[rows, nbr, ref_node]
+        else:
+            est = poses - pred_rel[:, :, ref_node]
+            mask = adj[:, :, ref_node]
+            pred_query = fuse_pose_estimates(est, mask, fuse)
+            out["fuse_ok"] = torch.all(torch.sum(mask, dim=1) >= 1)
+        out.update({"pred": pred_query, "target": poses[:, ref_node],
+                    "pred_abs": pred_abs[:, ref_node], "nbr": nbr})
+        return out
+
+    return eval_step
+

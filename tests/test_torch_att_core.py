@@ -22,6 +22,17 @@ from relpose_gnn_tpu_torch.ops import att_core
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two intra-op threads while this module runs: the suite runs several
+    test processes on one host, and torch's default of one thread a core
+    in each of them oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(e, c, seed=0):
     rng = np.random.default_rng(seed)
     return [rng.normal(size=(e, c)).astype(np.float32) for _ in range(3)]
@@ -161,9 +172,21 @@ def test_kernel_matches_plain_on_cuda(cuda_device, dtype, e, c):
 
 @pytest.mark.gpu
 def test_kernel_refuses_grad(cuda_device):
-    a = torch.randn(8, 16, device=cuda_device, requires_grad=True)
-    with pytest.raises(RuntimeError, match="inference-only"):
-        att_core.attention_core(a, a, a)
+    """Inputs that require grad no longer raise: the forward still
+    launches the kernel (never the plain version), under
+    `AttentionCoreFunction`, and its gradients equal autograd through the
+    plain version (rtol = atol = 1e-5, the forward's tolerance)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    args = [torch.randn(8, 16, device=cuda_device, generator=gen
+                        ).requires_grad_() for _ in range(3)]
+    ybar = torch.randn(8, 16, device=cuda_device, generator=gen)
+    before = att_core.LAUNCHES
+    got = torch.autograd.grad(att_core.attention_core(*args), args, ybar)
+    assert att_core.LAUNCHES == before + 1
+    want = torch.autograd.grad(att_core.attention_core_plain(*args), args,
+                               ybar)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **TOL)
 
 
 def _plain_f64(phi, theta, g):

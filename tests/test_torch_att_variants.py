@@ -34,6 +34,17 @@ VARIANTS = tuple(att_variants.VARIANT_FORMS)
 RESTRUCTURED = tuple(att_variants.RESTRUCTURED_FORMS)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two intra-op threads while this module runs: the suite runs several
+    test processes on one host, and torch's default of one thread a core
+    in each of them oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(e, c, seed=0, scale=1.0):
     rng = np.random.default_rng(seed)
     return [(rng.normal(size=(e, c)) * scale).astype(np.float32)

@@ -25,6 +25,17 @@ SERVICE = TINY + ["--batch", "4", "--retrieval-hw", "48", "64"]
 DEVICE_KEYS = {"platform", "device", "card"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two intra-op threads while this module runs: the suite runs several
+    test processes on one host, and torch's default of one thread a core
+    in each of them oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _run(capsys, bench, argv, tmp_path):
     """Run a bench; return its record after checking that the last line
     printed and the `--json` file both hold it."""

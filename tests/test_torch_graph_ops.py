@@ -21,6 +21,17 @@ from relpose_gnn_tpu_torch.ops import graph as tg
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two intra-op threads while this module runs: the suite runs several
+    test processes on one host, and torch's default of one thread a core
+    in each of them oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _feats(seed, b=3, n=8, d=16, ties=False):
     rng = np.random.default_rng(seed)
     if ties:

@@ -37,6 +37,17 @@ RESNET_TOL = dict(rtol=2e-5, atol=2e-5)
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two intra-op threads while this module runs: the suite runs several
+    test processes on one host, and torch's default of one thread a core
+    in each of them oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg_kwargs(**kw):
     base = dict(num_nodes=N, feat_dim=D, edge_dim=D, node_dim=D, knn=2,
                 backbone="resnet18", droprate=0.0)
@@ -221,7 +232,7 @@ def test_from_embeddings(jax_variables, cfg_kw):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(eval_dropout=True), "eval_dropout"),
+    (dict(use_ap=False), "use_ap"),
     (dict(backbone="vit"), "backbone"),
     (dict(use_gnn=False), "use_gnn"),
 ])

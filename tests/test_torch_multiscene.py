@@ -43,6 +43,17 @@ STATS = {"a": (np.float32([0.45, 0.43, 0.41]),
                np.float32([0.311, 0.286, 0.297]))}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two intra-op threads while this module runs: the suite runs several
+    test processes on one host, and torch's default of one thread a core
+    in each of them oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def scene(name):
     """10 frames with wide similarity gaps; the two scenes' fields and
     poses differ."""

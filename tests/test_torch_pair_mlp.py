@@ -38,6 +38,17 @@ FUSED_SHAPES = [(256, 32, 16, 512, 64, 128, 256),
 APPLY_SHAPES = [(2, 6, 24, 8, 40, 8, "edge"), (1, 4, 16, 16, 32, 16, "msg")]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two intra-op threads while this module runs: the suite runs several
+    test processes on one host, and torch's default of one thread a core
+    in each of them oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fused_inputs(e, d, de, h, do, seed=0):
     rng = np.random.default_rng(seed)
     f = np.float32

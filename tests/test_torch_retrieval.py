@@ -30,6 +30,17 @@ HW = (32, 48)
 K = 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two intra-op threads while this module runs: the suite runs several
+    test processes on one host, and torch's default of one thread a core
+    in each of them oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def encoder_pair():
     """A small JAX NetVLADEncoder (4 clusters), its params as numpy, the

@@ -43,6 +43,17 @@ FINGERPRINT_KEYS = ("model_struct", "model_checksum")
 MODES = ("netvlad", "shared-trunk")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two intra-op threads while this module runs: the suite runs several
+    test processes on one host, and torch's default of one thread a core
+    in each of them oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def model_norm(x):
     """Works on jax arrays and torch tensors alike."""
     return (x - 0.5) / 0.25

@@ -41,6 +41,17 @@ B, N, D, H, W = 3, 4, 32, 32, 40
 PRED_ATOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two intra-op threads while this module runs: the suite runs several
+    test processes on one host, and torch's default of one thread a core
+    in each of them oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg_kwargs(**kw):
     base = dict(num_nodes=N, feat_dim=D, edge_dim=D, node_dim=D, knn=2,
                 backbone="resnet18", droprate=0.0, compact_edges=True)
@@ -205,22 +216,22 @@ def _run(code_or_args, env=None, timeout=120):
 
 def test_port_and_chip_smoke_never_import_jax():
     """After importing every module of the port and `chip_smoke`, no
-    module of jax, flax, the JAX package or the repo's top-level
-    `benchmarks` package is loaded (the `_torch` package's own name
+    module of jax, flax, optax, orbax, the JAX package or the repo's
+    top-level `benchmarks` package is loaded (the `_torch` package's own name
     starts like the JAX package's and is excepted)."""
     proc = _run(["-c", (
         "import importlib, pkgutil, sys\n"
         "import relpose_gnn_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    pkg.__path__, pkg.__name__ + '.')]\n"
-        "assert len(names) >= 37, names\n"
+        "assert len(names) >= 45, names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "def foreign(m):\n"
         "    top = m.split('.')[0]\n"
-        "    return top in ('jax', 'jaxlib', 'flax', 'relpose_gnn_tpu',\n"
-        "                   'benchmarks', 'bench')\n"
+        "    return top in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+        "                   'relpose_gnn_tpu', 'benchmarks', 'bench')\n"
         "bad = sorted(m for m in sys.modules if foreign(m))\n"
         "assert not bad, bad\n"
         "for tail in ('evaluation.service', 'evaluation.multiscene',\n"
@@ -232,7 +243,10 @@ def test_port_and_chip_smoke_never_import_jax():
         "             'benchmarks.bench_service',\n"
         "             'benchmarks.bench_service_bisect',\n"
         "             'benchmarks.bench_retrieval_stages',\n"
-        "             'benchmarks.bench_eval'):\n"
+        "             'benchmarks.bench_eval', 'benchmarks.bench_train',\n"
+        "             'ops.pose', 'training.criterion',\n"
+        "             'training.checkpoints', 'training.experiment',\n"
+        "             'utils.logging'):\n"
         "    assert 'relpose_gnn_tpu_torch.' + tail in sys.modules, tail\n"
         "print('clean')\n")])
     assert proc.returncode == 0, proc.stderr
