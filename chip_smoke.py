@@ -92,6 +92,30 @@ is no CPU fallback: without CUDA it exits 1 at once.
             into a fresh model: predictions equal bit for bit; one
             float32 train step at droprate 0 with the kernel and with the
             plain core swapped in (TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_TOL)
+  feed      graph construction and the data feed at R3's full width:
+            512 database frames in 4 sequences and 128 queries at 256x341
+            made in memory (the card's machine has no PIL to decode
+            PNGs), poses through `process_poses`, embedded by
+            `NetVLADIndex` (VGG16 + NetVLAD, 64 x 512, 192x256) on the
+            card; `build_graphs` in IR mode (cross-connect over `seq_id`,
+            sampling period 5) writes `chess_fc8_sp5_train` (512 graphs,
+            1.07 GB uint8) and `_test` (128): counts, no neighbour in its
+            query's sequence, node poses and pixels = the database's at
+            `nbr_idx`; `DeviceCachedFeed` (nbytes, upload seconds, device
+            memory) equal to `data_iterator` -> `device_prefetch` bit for
+            bit over an epoch, its `eval_batches` over the ragged tail
+            too; `graphio.cc` built with g++, `NativeConcatDataset` over
+            both stores equal to `ConcatPackedDataset` grouped by store,
+            `native_data_iterator` equal to `data_iterator`;
+            `run_training` (experiment 2, batch 8, 1 epoch, then eval)
+            with `device_cache=True` and with the host feed (which logs
+            the native feed) under deterministic algorithms: losses
+            finite, the two train states and eval medians equal bit for
+            bit, the attention kernel launched gnn_recursion x (64 steps
+            + 16 eval batches) times in each; `evaluate_dataset` over the
+            test store with the trained state's eval step equal to
+            run_training's eval; `bench_feed` in process (numpy, native
+            at 1, 2 and 4 threads, the cached feed)
   time      CUDA events, median of 20 iterations after warm-up, the forms
             compared in turns within this one run: the attention core
             (kernel, its earlier form `restructured_core/v1`, `exp2_core`,
@@ -114,7 +138,11 @@ is no CPU fallback: without CUDA it exits 1 at once.
             time on the device alone; the R3 train step at batch 8 (step
             ms, graphs/s, peak memory, a profiler window) and the
             attention core's kernel forward and eager backward at its
-            shape (E = 512, C = 256, bf16)
+            shape (E = 512, C = 256, bf16); the same step fed by
+            `DeviceCachedFeed` and by the host feed (native graphio +
+            `device_prefetch`) over the feed phase's train store, in
+            turns, each with a profiler window (step ms with the batch's
+            fetch, busy ms, idle share)
 
 The timing helpers and the seeded models are the package's own
 (`benchmarks/_util.py`, `benchmarks/_synthetic.py`).  The line before the
@@ -128,6 +156,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import os
 import os.path as osp
@@ -149,30 +178,46 @@ from relpose_gnn_tpu_torch.benchmarks import (_synthetic, _util,
                                               bench_att_core, bench_att_exp2,
                                               bench_att_variants,
                                               bench_att_variants2, bench_eval,
-                                              bench_pair_mlp,
+                                              bench_feed, bench_pair_mlp,
                                               bench_retrieval_stages,
                                               bench_service,
                                               bench_service_bisect,
                                               bench_train)
 from relpose_gnn_tpu_torch.benchmarks._util import in_turns, median_ms
-from relpose_gnn_tpu_torch.data.packed import (PackedGraphDataset,
+from relpose_gnn_tpu_torch.data import native_io
+from relpose_gnn_tpu_torch.data.device_cache import DeviceCachedFeed
+from relpose_gnn_tpu_torch.data.graph_builder import (GraphBuilderConfig,
+                                                      build_graphs,
+                                                      self_exclusion_mask)
+from relpose_gnn_tpu_torch.data.packed import (ConcatPackedDataset,
+                                               PackedGraphDataset,
                                                PackedGraphWriter)
-from relpose_gnn_tpu_torch.data.pipeline import (device_prefetch,
-                                                 make_normalizer)
+from relpose_gnn_tpu_torch.data.pipeline import (data_iterator,
+                                                 device_prefetch,
+                                                 make_normalizer,
+                                                 native_data_iterator,
+                                                 to_float01)
+from relpose_gnn_tpu_torch.data.seven_scenes import load_scene_stats
 from relpose_gnn_tpu_torch.evaluation import serving
-from relpose_gnn_tpu_torch.evaluation.evaluator import compute_pose_errors
+from relpose_gnn_tpu_torch.evaluation.evaluator import (compute_pose_errors,
+                                                        evaluate_dataset)
 from relpose_gnn_tpu_torch.evaluation.multiscene import MultiSceneService
 from relpose_gnn_tpu_torch.evaluation.service import (RelocalizationService,
                                                       ServiceConfig,
                                                       similarities)
 from relpose_gnn_tpu_torch.models.posenet import RelPoseGNN
 from relpose_gnn_tpu_torch.ops import _build, att_core, att_variants, pair_mlp
+from relpose_gnn_tpu_torch.ops import pose as pose_ops
+from relpose_gnn_tpu_torch.retrieval.netvlad_index import (IMAGENET_MEAN,
+                                                           IMAGENET_STD,
+                                                           NetVLADIndex)
 from relpose_gnn_tpu_torch.retrieval.subsample import fold_in
 from relpose_gnn_tpu_torch.training.checkpoints import save_torch_checkpoint
 from relpose_gnn_tpu_torch.training.experiment import (ExperimentConfig,
                                                        build_model,
                                                        evaluate_scene,
-                                                       run_eval, run_training)
+                                                       run_eval, run_training,
+                                                       static_anchor_for)
 from relpose_gnn_tpu_torch.training.trainer import (TrainerConfig,
                                                     create_train_state,
                                                     loss_fn, make_eval_step,
@@ -1654,6 +1699,402 @@ def run_bench_train() -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the data feed: stores built on the card, the cached and native feeds
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FeedSizes:
+    """What the feed phase builds and trains on.  A real 7-Scenes chess
+    training split has 4000 frames; 512 keep the phase inside the run's
+    time limit (`reduced`)."""
+    train: int = 512
+    test: int = 128
+    seqs: int = 4
+    batch: int = TRAIN_BATCH
+    eval_batch: int = 12           # 128 = 10 x 12 + 8: a ragged tail
+    height: int = H
+    width: int = W
+    clusters: int = 64
+    retrieval_hw: tuple = (192, 256)
+    bench_args: tuple = ()
+
+
+class FrameSet:
+    """Frames made in memory behind the loaders' interface (`poses`,
+    `seq_id`, `load_image`, `rel_path`): the card's machine has no PIL to
+    decode the PNGs of a real split."""
+
+    def __init__(self, frames: np.ndarray, poses: np.ndarray,
+                 seq_id: np.ndarray):
+        self.frames, self.poses, self.seq_id = frames, poses, seq_id
+
+    def __len__(self) -> int:
+        return len(self.frames)
+
+    def load_image(self, i: int) -> np.ndarray:
+        return self.frames[i].astype(np.float32) / 255.0
+
+    def rel_path(self, i: int) -> str:
+        return f"chess/seq-{self.seq_id[i]:02d}/frame-{i:06d}.color.png"
+
+
+def seeded_poses(rng: np.random.Generator, n: int) -> np.ndarray:
+    """n pose6 rows from seeded rotations and translations, through the
+    port's `process_poses` (as a 7-Scenes loader makes them)."""
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    R = pose_ops.quat2mat(torch.from_numpy(q.astype(np.float32))).double()
+    raw = np.concatenate([R.numpy(), rng.normal(size=(n, 3, 1))], axis=2)
+    return pose_ops.process_poses(raw.reshape(n, 12), np.zeros(3),
+                                  np.ones(3), np.eye(3), np.zeros(3),
+                                  1.0).astype(np.float32)
+
+
+def netvlad_inputs(dev, frames: np.ndarray, hw: tuple) -> np.ndarray:
+    """uint8 frames -> NetVLAD input at `hw`, ImageNet-normalised: the
+    antialiased bilinear resize the service runs on the card (the host
+    path, `netvlad_preprocess_7scenes`, resizes with PIL)."""
+    mean = torch.tensor(IMAGENET_MEAN, device=dev)
+    std = torch.tensor(IMAGENET_STD, device=dev)
+    out = []
+    for i in range(0, len(frames), 64):
+        x = to_float01(torch.from_numpy(frames[i:i + 64]).to(dev))
+        x = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw),
+                          mode="bilinear", antialias=True,
+                          align_corners=False)
+        out.append(((x.permute(0, 2, 3, 1) - mean) / std).cpu().numpy())
+    return np.concatenate(out)
+
+
+def build_feed_stores(dev, root: str, sizes: FeedSizes) -> FrameSet:
+    """`chess_fc8_sp5_train` (IR over NetVLAD descriptors embedded on the
+    card, cross-connect over `seq_id`, sampling period 5) and
+    `chess_fc8_sp5_test` (queries of a fifth sequence against the same
+    database) through `build_graphs`; the stores' checks.  Returns the
+    database."""
+    rng = np.random.default_rng(SEED + 11)
+    n_all = sizes.train + sizes.test
+    t0 = time.perf_counter()
+    frames = _synthetic.synthetic_frames(dev, n_all, sizes.height,
+                                         sizes.width, SEED + 12).numpy()
+    poses = seeded_poses(rng, n_all)
+    seq_id = np.concatenate([
+        np.repeat(np.arange(1, sizes.seqs + 1), sizes.train // sizes.seqs),
+        np.full(sizes.test, sizes.seqs + 1)]).astype(np.int32)
+    db = FrameSet(frames[:sizes.train], poses[:sizes.train],
+                  seq_id[:sizes.train])
+    queries = FrameSet(frames[sizes.train:], poses[sizes.train:],
+                       seq_id[sizes.train:])
+    encoder = _synthetic.netvlad_encoder(dev, sizes.clusters,
+                                         torch.bfloat16, SEED + 13)
+    index = NetVLADIndex(encoder, batch_size=64, device=dev)
+    index.build(netvlad_inputs(dev, db.frames, sizes.retrieval_hw))
+    q_desc = index.embed(netvlad_inputs(dev, queries.frames,
+                                        sizes.retrieval_hw))
+    sim_db = index.similarities(index.descriptors.cpu().numpy())
+    sim_q = index.similarities(q_desc)
+    t_embed = time.perf_counter() - t0
+    check(sim_db.shape == (sizes.train, sizes.train)
+          and bool(np.isfinite(sim_db).all()) and bool(
+              np.isfinite(sim_q).all()), "NetVLAD similarities")
+    mean, std = load_scene_stats(None, "chess")
+    cfg = GraphBuilderConfig(seq_len=8, sampling_period=5,
+                             retrieval_mode="IR", cross_connect=True,
+                             seed=SEED)
+    t0 = time.perf_counter()
+    n_train = build_graphs(
+        db, db, osp.join(root, "chess_fc8_sp5_train"), cfg,
+        similarity_fn=lambda qi: sim_db[qi],
+        invalid_fn=lambda qi: self_exclusion_mask(
+            len(db), qi, True, True, seq_ids=db.seq_id,
+            query_seq=db.seq_id[qi]),
+        mean=mean, std=std, height=sizes.height, width=sizes.width)
+    n_test = build_graphs(
+        queries, db, osp.join(root, "chess_fc8_sp5_test"),
+        dataclasses.replace(cfg, cross_connect=False,
+                            database_is_query_set=False),
+        similarity_fn=lambda qi: sim_q[qi], mean=mean, std=std,
+        height=sizes.height, width=sizes.width)
+    t_build = time.perf_counter() - t0
+    check((n_train, n_test) == (sizes.train, sizes.test),
+          f"build_graphs wrote {n_train} / {n_test} graphs, want "
+          f"{sizes.train} / {sizes.test}")
+    for split, qset in (("train", db), ("test", queries)):
+        ds = PackedGraphDataset(osp.join(root, f"chess_fc8_sp5_{split}"))
+        nbr = np.asarray(ds.nbr_idx)
+        check(len(ds) == len(qset) and nbr.shape == (len(qset), 7)
+              and bool((nbr >= 0).all() and (nbr < len(db)).all()),
+              f"{split} store: {len(ds)} graphs, nbr_idx {nbr.shape}")
+        if split == "train":
+            own = db.seq_id[nbr] == db.seq_id[:, None]
+            check(not own.any(), f"{int(own.sum())} neighbours of the "
+                  "train store in their query's own sequence")
+        check(np.array_equal(ds.poses[:, 1:], db.poses[nbr])
+              and np.array_equal(ds.poses[:, 0], qset.poses),
+              f"{split} store: node poses differ from the database poses "
+              "at nbr_idx")
+        check(np.array_equal(ds.images[:4, 0], qset.frames[:4])
+              and np.array_equal(ds.images[:4, 1:], db.frames[nbr[:4]]),
+              f"{split} store: node pixels differ from the frames")
+        check(ds.rel_paths == [qset.rel_path(i) for i in range(len(qset))],
+              f"{split} store: rel_paths")
+    nbytes = sum(osp.getsize(osp.join(root, "chess_fc8_sp5_train", f))
+                 for f in ("images.npy", "poses.npy", "adj.npy"))
+    phase("feed", f"stores: {sizes.train} database frames in "
+          f"{sizes.seqs} sequences + {sizes.test} queries at "
+          f"{sizes.height}x{sizes.width} made in memory, poses through "
+          f"process_poses; NetVLADIndex ({sizes.clusters} x 512-D, "
+          f"{sizes.retrieval_hw[0]}x{sizes.retrieval_hw[1]}) embedded them "
+          f"on the card in {t_embed:.2f} s; build_graphs IR, cross-connect "
+          f"over seq_id, sampling period 5 wrote chess_fc8_sp5_train "
+          f"({n_train} graphs, {nbytes / 1e9:.3f} GB) and _test ({n_test}) "
+          f"in {t_build:.1f} s; no neighbour in its query's sequence, every "
+          f"node's pose = the database pose at nbr_idx, pixels = the frames")
+    phase("feed", f"reduced: the chess training split (4000 frames) cut "
+          f"to {sizes.train} database frames and {sizes.test} queries for "
+          "the run's time limit")
+    return db
+
+
+def _same_batches(got, want, what: str) -> int:
+    """Every batch of two iterators equal, key for key, bit for bit (on
+    the device where the batches are); returns how many."""
+    n = 0
+    for a, b in itertools.zip_longest(got, want):
+        check(a is not None and b is not None, f"{what}: batch counts "
+              "differ")
+        check(set(a) == set(b), f"{what}: keys {set(a)} vs {set(b)}")
+        for k in a:
+            x = a[k] if torch.is_tensor(a[k]) else torch.from_numpy(a[k])
+            y = b[k] if torch.is_tensor(b[k]) else torch.from_numpy(b[k])
+            check(x.dtype == y.dtype and torch.equal(x, y.to(x.device)),
+                  f"{what}: batch {n} '{k}' differs")
+        n += 1
+    return n
+
+
+def check_feeds(dev, root: str, sizes: FeedSizes) -> None:
+    """DeviceCachedFeed against the host feed, the native feed against
+    the numpy one, bit for bit."""
+    train_root = osp.join(root, "chess_fc8_sp5_train")
+    test_root = osp.join(root, "chess_fc8_sp5_test")
+    train_ds, test_ds = (PackedGraphDataset(r)
+                         for r in (train_root, test_root))
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    feed = DeviceCachedFeed(train_ds, dev)
+    torch.cuda.synchronize()
+    upload = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated(dev) - mem0
+    nbytes = feed.nbytes
+    n = _same_batches(feed.epoch(seed=SEED, batch_size=sizes.batch),
+                      device_prefetch(data_iterator(
+                          train_ds, sizes.batch, seed=SEED, epochs=1),
+                          train_ds.mean, train_ds.std, dev),
+                      "DeviceCachedFeed epoch vs host feed")
+    check(n == sizes.train // sizes.batch, f"{n} cached batches")
+    del feed
+    test_feed = DeviceCachedFeed(test_ds, dev)
+    rows = [k for _, k in test_feed.eval_batches(sizes.eval_batch)]
+    check(sum(rows) == sizes.test and rows[-1] == (
+        sizes.test % sizes.eval_batch or sizes.eval_batch),
+        f"eval_batches rows {rows}")
+    _same_batches((b for b, _ in test_feed.eval_batches(sizes.eval_batch)),
+                  device_prefetch(data_iterator(
+                      test_ds, sizes.eval_batch, shuffle=False, epochs=1,
+                      drop_remainder=False), test_ds.mean, test_ds.std,
+                      dev), "DeviceCachedFeed eval_batches vs host feed")
+    del test_feed
+    phase("feed", f"DeviceCachedFeed(chess_fc8_sp5_train): nbytes "
+          f"{nbytes}, uploaded in {upload:.3f} s, {held / 2**30:.3f} GiB of "
+          f"device "
+          f"memory; epoch 0 ({n} batches of {sizes.batch}) equal to "
+          f"data_iterator -> device_prefetch bit for bit; eval_batches of "
+          f"the test store cover {sizes.test} rows as {rows[:2]} ... "
+          f"{rows[-1]}, equal to the host feed")
+
+    t0 = time.perf_counter()
+    native_io.build()
+    check(native_io.available(), "native graphio did not load")
+    t_build = time.perf_counter() - t0
+    native = native_io.NativeConcatDataset([train_root, test_root],
+                                           threads=4)
+    concat = ConcatPackedDataset([train_ds, test_ds])
+    rng = np.random.default_rng(SEED + 14)
+    for _ in range(4):
+        idx = rng.choice(len(concat), sizes.batch * 2, replace=False)
+        order = np.argsort(idx >= len(train_ds), kind="stable")
+        want = {k: v[order] for k, v in concat.batch(idx).items()}
+        _same_batches([native.batch(idx)], [want],
+                      "NativeConcatDataset vs the grouped concat feed")
+    native.close()
+    n = _same_batches(
+        native_data_iterator(test_root, sizes.batch, seed=SEED),
+        data_iterator(test_ds, sizes.batch, seed=SEED),
+        "native_data_iterator vs data_iterator")
+    phase("feed", f"native graphio built with g++ in {t_build:.2f} s "
+          f"({native_io.library_path().name}); NativeConcatDataset over "
+          f"train + test equal to ConcatPackedDataset grouped by store on 4 "
+          f"batches of {sizes.batch * 2}; native_data_iterator equal to "
+          f"data_iterator on the test store ({n} batches)")
+
+
+def run_feed(dev, root: str, sizes: FeedSizes, model_kw: dict) -> dict:
+    """The feed phase: stores, feeds, two `run_training` runs (cached and
+    host feed) bit for bit, `evaluate_dataset` against run_training's
+    eval, `bench_feed`.  Returns the attention kernel's launches by
+    path."""
+    build_feed_stores(dev, root, sizes)
+    check_feeds(dev, root, sizes)
+    launches, runs = {}, {}
+    steps = sizes.train // sizes.batch
+    eval_batches = -(-sizes.test // sizes.batch)
+    with deterministic_algorithms():
+        for cache in (True, False):
+            name = "cached" if cache else "host"
+            cfg = train_config(root, max_epoch=1, eval_after_epoch=-1,
+                               ckpt_every=0, batch_size=sizes.batch,
+                               device_cache=cache,
+                               save_dir=osp.join(root, f"out-{name}"),
+                               **model_kw)
+            att_core.LAUNCHES = 0
+            t0 = time.perf_counter()
+            out = run_training(cfg, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[f"feed run_training {name}"] = att_core.LAUNCHES
+            want = cfg.gnn_recursion * (steps + eval_batches)
+            check(att_core.LAUNCHES == want, f"run_training ({name} feed) "
+                  f"launched the attention kernel {att_core.LAUNCHES} "
+                  f"times, want {want}")
+            logdir = osp.join(cfg.save_dir, "7Scenes", "chess", "smoke")
+            with open(osp.join(logdir, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            losses = [r["loss"] for r in recs if "loss" in r]
+            check(len(losses) == 1 and np.isfinite(losses[0]),
+                  f"{name} feed: epoch losses {losses}")
+            with open(osp.join(logdir, "logger.log")) as f:
+                log = f.read()
+            took = ("training feed: device cache" if cache
+                    else "training feed: native C++ graphio")
+            check(took in log, f"run_training did not log '{took}'")
+            runs[name] = out
+            phase("feed", f"run_training R3 {cfg.dtype} batch "
+                  f"{sizes.batch}, 1 epoch = {steps} steps + eval, {name} "
+                  f"feed ('{took}'): {wall:.1f} s; loss {losses[0]}; eval "
+                  f"median {out['best']['chess']['median_t']:.4f} m, "
+                  f"{out['best']['chess']['median_q']:.4f} deg; attention "
+                  f"kernel launches {att_core.LAUNCHES} (= "
+                  f"{cfg.gnn_recursion} x ({steps} + {eval_batches}))")
+        a = _flat_state(runs["cached"]["state"])
+        b = _flat_state(runs["host"]["state"])
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        check(a.keys() == b.keys() and not differ,
+              f"cached and host-feed runs differ in {differ[:5]}")
+        check(runs["cached"]["best"] == runs["host"]["best"],
+              f"eval medians {runs['cached']['best']} vs "
+              f"{runs['host']['best']}")
+        phase("feed", f"the cached and host-feed runs' {len(a)} train-state "
+              "tensors and eval medians equal bit for bit (deterministic "
+              "algorithms on)")
+
+        state = runs["cached"]["state"]
+        test_ds = PackedGraphDataset(osp.join(root, "chess_fc8_sp5_test"))
+        att_core.LAUNCHES = 0
+        errs = evaluate_dataset(
+            make_eval_step(ref_node=0, static_anchor=static_anchor_for(cfg)),
+            state, device_prefetch(data_iterator(
+                test_ds, sizes.batch, shuffle=False, epochs=1,
+                drop_remainder=False), test_ds.mean, test_ds.std, dev),
+            np.zeros(3), np.ones(3))
+        torch.cuda.synchronize()
+        launches["evaluate_dataset"] = att_core.LAUNCHES
+        best = runs["cached"]["best"]["chess"]
+        check(errs.pred_poses.shape == (sizes.test, 7)
+              and bool(np.isfinite(errs.pred_poses).all()),
+              f"evaluate_dataset predictions {errs.pred_poses.shape}")
+        check((errs.median_t, errs.median_q) == (best["median_t"],
+                                                 best["median_q"]),
+              f"evaluate_dataset medians {errs.median_t}, {errs.median_q} "
+              f"vs run_training's eval {best}")
+        check(att_core.LAUNCHES == 2 * eval_batches,
+              f"evaluate_dataset launched {att_core.LAUNCHES} kernels")
+    phase("feed", f"evaluate_dataset over chess_fc8_sp5_test ({sizes.test} "
+          f"queries, the trained state's eval step): median "
+          f"{errs.median_t} m, {errs.median_q} deg, equal to run_training's "
+          f"eval; attention kernel launches {att_core.LAUNCHES}")
+
+    out = bench_feed.main(list(sizes.bench_args))
+    legs = out["feed"]
+    check(legs["numpy"]["batches_per_s"] > 0 and legs["cached"][
+        "ms_per_batch"] > 0 and [r["threads"] for r in legs["native"]] == [
+        1, 2, 4], f"bench_feed: {out}")
+    rows = ", ".join(f"native t={r['threads']} {r['batches_per_s']} "
+                     f"batches/s = {r['gb_per_s']} GB/s"
+                     for r in legs["native"])
+    phase("feed", f"bench_feed.main, batches of {out['batch']} x "
+          f"{out['graph_shape']} uint8 from {out['stores']} stores: numpy "
+          f"{legs['numpy']['batches_per_s']} batches/s = "
+          f"{legs['numpy']['gb_per_s']} GB/s; {rows}; device cache "
+          f"{legs['cached']['ms_per_batch']} ms/batch = "
+          f"{legs['cached']['gb_per_s']} GB/s ({out['card']})")
+    return launches
+
+
+def time_feed(dev, card: str, root: str, sizes: FeedSizes,
+              model_kw: dict) -> dict:
+    """The R3 train step at batch 8 fed by DeviceCachedFeed and by the
+    host feed (the native runtime + device_prefetch), in turns: step ms
+    (CUDA events around a step, the batch's fetch included), busy ms and
+    the idle share of the unprofiled step."""
+    cfg = train_config(root, batch_size=sizes.batch, **model_kw)
+    tcfg = TrainerConfig()
+    state = create_train_state(build_model(cfg, dev), tcfg)
+    train_step = make_train_step(tcfg)
+    train_root = osp.join(root, "chess_fc8_sp5_train")
+    cached = DeviceCachedFeed(PackedGraphDataset(train_root), dev)
+
+    def cycle():
+        epoch = 0
+        while True:
+            yield from cached.epoch(seed=SEED + epoch,
+                                    batch_size=sizes.batch)
+            epoch += 1
+
+    native = native_io.NativeConcatDataset([train_root], threads=4)
+    cached_batches = cycle()
+    # one epoch covers the calls below: 2 x (ITERS + 3) timed, 8 profiled
+    host_batches = device_prefetch(data_iterator(
+        native, sizes.batch, seed=SEED, epochs=1), native.mean, native.std,
+        dev)
+    forms = {"cached": lambda: train_step(state, next(cached_batches), SEED),
+             "host": lambda: train_step(state, next(host_batches), SEED)}
+    ms = in_turns(forms, iters=ITERS, device=dev)
+    prof = {k: profile_step(f"R3 train step fed by the {k} feed", fn,
+                            ms[k]) for k, fn in forms.items()}
+    for _ in host_batches:  # let the host feed's thread finish its epoch
+        pass
+    native.close()
+    phase("time", f"R3 train step, batch {sizes.batch}, in turns by feed: "
+          f"DeviceCachedFeed {ms['cached']} ms, host feed (native graphio "
+          f"+ device_prefetch) {ms['host']} ms; busy "
+          f"{[None if p is None else p['busy_ms'] for p in prof.values()]}"
+          f" ms, idle share "
+          f"{[None if p is None else p['idle_share'] for p in prof.values()]}"
+          f" (cached, host; {card})")
+    rec = {}
+    for k in forms:
+        rec[f"feed_{k}_step_ms"] = ms[k]
+        rec[f"feed_{k}_busy_ms"] = None if prof[k] is None else prof[k][
+            "busy_ms"]
+        rec[f"feed_{k}_idle_share"] = None if prof[k] is None else prof[k][
+            "idle_share"]
+    return rec
+
+
 def time_train(dev, card: str) -> dict:
     """The R3 train step at batch 8 (bf16): step ms, graphs/s, peak
     memory, a profiler window; the attention core's kernel forward and
@@ -2068,8 +2509,12 @@ def main() -> int:
         att_launches["train"] = run_train(dev, tmp)
     att_launches["bench_train"] = run_bench_train()
 
-    att_times = time_cached_eval(dev, model, card)
-    att_times.update(time_train(dev, card))
+    feed_sizes = FeedSizes()
+    with tempfile.TemporaryDirectory() as feed_root:
+        att_launches.update(run_feed(dev, feed_root, feed_sizes, {}))
+        att_times = time_cached_eval(dev, model, card)
+        att_times.update(time_train(dev, card))
+        att_times.update(time_feed(dev, card, feed_root, feed_sizes, {}))
     variant_times, variant_bench_err = time_variants(dev, card,
                                                      variant_bench_ms)
     for mode, (svc, queries) in timed.items():

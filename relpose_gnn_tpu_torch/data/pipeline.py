@@ -6,7 +6,9 @@ float32.
 
   * `batch_indices` / `data_iterator` draw the same
     `np.random.default_rng(seed + epoch)` permutations as the JAX
-    iterator, so a seed gives the same batch order in both packages.
+    iterator, so a seed gives the same batch order in both packages;
+    `native_data_iterator` gives the same batches through the native
+    graphio runtime.
   * `device_prefetch` gathers on a host thread into pinned memory, uploads
     up to `prefetch` batches ahead on a side stream and normalises them
     there; the consumer's stream waits on each batch's event.
@@ -40,7 +42,8 @@ def make_normalizer(mean: np.ndarray, std: np.ndarray,
                     ) -> Callable[[torch.Tensor], torch.Tensor]:
     """uint8 (or float) images [..., 3] -> float32 `(x / 255 - mean) / std`
     (the /255 only for uint8), on `device`.  The same expression as the JAX
-    normaliser, not the `* (1 / std)` form of its per-record variant."""
+    normaliser; `normalize_per_record` divides too.  The `* (1.0 / std)`
+    form belongs only to the services' `norm_ms` path."""
     mean_t = torch.as_tensor(np.asarray(mean, np.float32), device=device)
     std_t = torch.as_tensor(np.asarray(std, np.float32), device=device)
 
@@ -82,6 +85,34 @@ def data_iterator(dataset, batch_size: int, seed: int = 0,
                                  drop_remainder):
             yield dataset.batch(idx)
         epoch += 1
+
+
+def native_data_iterator(root: str, batch_size: int, seed: int = 0,
+                         shuffle: bool = True, epochs: int | None = 1,
+                         drop_remainder: bool = True,
+                         threads: int = 4) -> Iterator[dict]:
+    """`data_iterator` over one store, read by the native graphio runtime
+    (mmap + thread-pool gather + async prefetch, `data/native_io.py`):
+    the same batches in the same order.  Where the runtime does not build
+    it reads the numpy memmaps."""
+    from relpose_gnn_tpu_torch.data import native_io
+    from relpose_gnn_tpu_torch.data.packed import PackedGraphDataset
+
+    if not native_io.available():
+        yield from data_iterator(PackedGraphDataset(root), batch_size,
+                                 seed=seed, shuffle=shuffle, epochs=epochs,
+                                 drop_remainder=drop_remainder)
+        return
+    loader = native_io.NativeBatchLoader(root, threads=threads)
+    try:
+        epoch = 0
+        while epochs is None or epoch < epochs:
+            rng = np.random.default_rng(seed + epoch)
+            yield from loader.epoch(rng, batch_size, shuffle=shuffle,
+                                    drop_remainder=drop_remainder)
+            epoch += 1
+    finally:
+        loader.close()
 
 
 def device_prefetch(host_iter: Iterator[dict], mean: np.ndarray,

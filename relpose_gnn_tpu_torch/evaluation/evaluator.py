@@ -1,7 +1,8 @@
 """Pose error statistics (numpy float64).
 
 Port of `relpose_gnn_tpu/evaluation/evaluator.py::{PoseErrors,
-compute_pose_errors, save_poses}` (reference testing/test.py:236-276).  Re-implemented
+compute_pose_errors, evaluate_dataset, save_poses}` (reference
+testing/test.py:236-276).  Re-implemented
 here because the JAX package's `evaluation` package imports jax.  Errors
 are computed in float64 on the host: float32 arccos noise near 0 degrees
 would bias small medians.
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Callable, Iterable
 
 import numpy as np
 
@@ -90,3 +92,20 @@ def save_poses(save_dir: str, scene: str, errors: PoseErrors,
         arrays["rel_path"] = np.asarray(rel_paths)
     np.savez(path, **arrays)
     return path
+
+
+def evaluate_dataset(eval_step: Callable, state, batches: Iterable[dict],
+                     pose_mean: np.ndarray | None = None,
+                     pose_std: np.ndarray | None = None) -> PoseErrors:
+    """Run the eval step (`training/trainer.py::make_eval_step`) over an
+    iterable of device batches and reduce to pose errors."""
+    from relpose_gnn_tpu_torch.training.trainer import check_fuse_ok
+
+    preds, targs = [], []
+    for batch in batches:
+        out = eval_step(state, batch)
+        check_fuse_ok(out, "evaluate_dataset")
+        preds.append(out["pred"].float().cpu().numpy())
+        targs.append(out["target"].float().cpu().numpy())
+    return compute_pose_errors(np.concatenate(preds), np.concatenate(targs),
+                               pose_mean=pose_mean, pose_std=pose_std)

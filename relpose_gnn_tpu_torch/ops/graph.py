@@ -29,8 +29,32 @@ import torch.nn.functional as F
 
 
 def _roll_chain_edges(n: int, shift: int) -> np.ndarray:
+    """Edges (i, i+shift) for i in [0, n-shift)."""
     src = np.arange(n - shift)
     return np.stack([src, src + shift])
+
+
+def rnn_edge_index(n: int) -> np.ndarray:
+    """Chain graph."""
+    return _roll_chain_edges(n, 1)
+
+
+def circ_edge_index(n: int) -> np.ndarray:
+    """Ring graph."""
+    src = np.arange(n)
+    return np.stack([src, np.roll(src, -1)])
+
+
+def dilated_edge_index(n: int, dilation: int = 2) -> np.ndarray:
+    """Dilated ring."""
+    src = np.arange(n)
+    return np.stack([src, np.roll(src, -dilation)])
+
+
+def ho_edge_index(n: int, hoc: int = 2) -> np.ndarray:
+    """Higher-order chain: chords up to distance `hoc`."""
+    return np.concatenate([_roll_chain_edges(n, s + 1) for s in range(hoc)],
+                          axis=1)
 
 
 def fc_edge_index(n: int, bidirectional: bool = True) -> np.ndarray:
@@ -44,9 +68,65 @@ def fc_edge_index(n: int, bidirectional: bool = True) -> np.ndarray:
     return e
 
 
+def fc_rand_edge_index(n: int, hoc: int = 2, rand_edge_factor: float = 0.2,
+                       rng: np.random.Generator | None = None) -> np.ndarray:
+    """'fc+rand': chords up to `hoc` plus random longer chords (one
+    uniform draw per candidate from `rng`, in the JAX op's order),
+    bidirectionalized."""
+    rng = rng or np.random.default_rng()
+    parts = [_roll_chain_edges(n, s + 1) for s in range(hoc)]
+    for s in range(hoc, n - 1):
+        cand = _roll_chain_edges(n, s + 1)
+        keep = rng.random(cand.shape[1]) < rand_edge_factor
+        parts.append(cand[:, keep])
+    e = np.concatenate(parts, axis=1)
+    return np.concatenate([e, e[::-1]], axis=1)
+
+
+EDGE_BUILDERS = {
+    "rnn": rnn_edge_index,
+    "circ": circ_edge_index,
+    "dilated": dilated_edge_index,
+    "ho": ho_edge_index,
+    "fc": fc_edge_index,
+    "fc+rand": fc_rand_edge_index,
+}
+
+
+def build_edge_index(graph_structure: str, n: int) -> np.ndarray | None:
+    """Edge list for a named graph structure ('ind' -> no edges), every
+    structure bidirectional."""
+    if graph_structure == "ind":
+        return None
+    e = EDGE_BUILDERS[graph_structure](n)
+    if graph_structure not in ("fc", "fc+rand"):  # those already flipped
+        e = np.concatenate([e, e[::-1]], axis=1)
+    return e
+
+
+def edge_index_to_adj(edge_index: np.ndarray, n: int) -> np.ndarray:
+    """[2, E] edge list -> dense [N, N] bool adjacency (adj[s, t])."""
+    adj = np.zeros((n, n), dtype=bool)
+    adj[edge_index[0], edge_index[1]] = True
+    return adj
+
+
 def fc_adjacency(n: int) -> np.ndarray:
     """Dense fully-connected (no self-loop) adjacency [N, N]."""
     return ~np.eye(n, dtype=bool)
+
+
+def first_edge_anchor(edge_index: np.ndarray, ref_node: int = 0) -> int:
+    """Source node of the `ref_node`-th edge into node 0 (the query) in
+    construction order; for `fc_edge_index` and ref_node 0 that is node
+    1.  With knn > 0 the dynamic graph's order encodes distance instead:
+    use `nearest_neighbor` there."""
+    into_query = np.flatnonzero(edge_index[1] == 0)
+    if ref_node >= len(into_query):
+        raise ValueError(
+            f"only {len(into_query)} edges into node 0; ref_node="
+            f"{ref_node} out of range")
+    return int(edge_index[0, into_query[ref_node]])
 
 
 # ---------------------------------------------------------------------------

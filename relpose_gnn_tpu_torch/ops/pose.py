@@ -2,9 +2,11 @@
 
 Port of the quaternion part of `relpose_gnn_tpu/ops/pose.py` (`vdot` to
 `calc_vo`, reference pose_utils.py:17-172), which
-`training/criterion.py::mapnet_online_criterion` needs.  The rest of the
-JAX module (log-quaternion poses, alignment) is in ROADMAP.md, 'Modules to
-port', the rest of the model zoo.
+`training/criterion.py::mapnet_online_criterion` needs, and of its
+rotation-matrix conversions and host pose preprocessing (`mat2quat`,
+`quat2mat`, `process_poses*`), which the loaders need.  The rest of the
+JAX module (the `calc_vo*` family, angular errors, alignment) is in
+ROADMAP.md, 'Modules to port', the rest of the model zoo.
 
 Conventions, as in the JAX module: quaternions are [w, x, y, z] (scalar
 first); a pose7 is [t(3), q(4)].  Every function is batched over leading
@@ -13,6 +15,7 @@ dimensions and differentiable.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _EPS = 1e-8
@@ -95,3 +98,111 @@ def invert_pose_quaternion(p: torch.Tensor) -> torch.Tensor:
 def calc_vo(p0: torch.Tensor, p1: torch.Tensor) -> torch.Tensor:
     """Relative pose of p1 expressed in the p0 frame (pose7)."""
     return compose_pose_quaternion(invert_pose_quaternion(p0), p1)
+
+
+# ---------------------------------------------------------------------------
+# Rotation matrix <-> quaternion, and the loaders' pose preprocessing
+# ---------------------------------------------------------------------------
+
+def mat2quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> unit quaternion [..., 4] (w,x,y,z).
+
+    Shepperd's branchless method: all four candidate quadruples, the one
+    with the largest pivot (first on ties) selected."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp_min(x, _EPS * _EPS))
+
+    s_w = safe_sqrt(1.0 + tr)
+    q_w = torch.stack([0.5 * s_w, 0.5 * (m21 - m12) / s_w,
+                       0.5 * (m02 - m20) / s_w, 0.5 * (m10 - m01) / s_w], -1)
+    s_x = safe_sqrt(1.0 + m00 - m11 - m22)
+    q_x = torch.stack([0.5 * (m21 - m12) / s_x, 0.5 * s_x,
+                       0.5 * (m01 + m10) / s_x, 0.5 * (m02 + m20) / s_x], -1)
+    s_y = safe_sqrt(1.0 - m00 + m11 - m22)
+    q_y = torch.stack([0.5 * (m02 - m20) / s_y, 0.5 * (m01 + m10) / s_y,
+                       0.5 * s_y, 0.5 * (m12 + m21) / s_y], -1)
+    s_z = safe_sqrt(1.0 - m00 - m11 + m22)
+    q_z = torch.stack([0.5 * (m10 - m01) / s_z, 0.5 * (m02 + m20) / s_z,
+                       0.5 * (m12 + m21) / s_z, 0.5 * s_z], -1)
+
+    best = torch.argmax(torch.stack([tr, m00, m11, m22], -1), -1)[..., None]
+    q = torch.where(best == 0, q_w,
+                    torch.where(best == 1, q_x,
+                                torch.where(best == 2, q_y, q_z)))
+    return normalize(q)
+
+
+def quat2mat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion [..., 4] (w,x,y,z) -> rotation matrix [..., 3, 3]."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = [
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+# The JAX package evaluates `mat2quat` and `qlog` on its default float32
+# and widens the result to float64; these host helpers do the same, so
+# stored log-quaternions agree to float32 rounding.
+
+def _mat2quat_f32(R: np.ndarray) -> np.ndarray:
+    return mat2quat(torch.from_numpy(np.asarray(R, np.float32))).numpy()
+
+
+def _qlog_f32(q: np.ndarray) -> np.ndarray:
+    return qlog(torch.from_numpy(np.asarray(q, np.float32))).numpy()
+
+
+def process_poses(poses_in: np.ndarray, mean_t: np.ndarray, std_t: np.ndarray,
+                  align_R: np.ndarray, align_t: np.ndarray,
+                  align_s: float, sign_zero_quirk: bool = False
+                  ) -> np.ndarray:
+    """Raw Nx12 row-major [R|t] poses -> Nx6 float64 [t, logq], aligned
+    and normalized: rotation aligned by `align_R`, quaternion put in the
+    w >= 0 hemisphere and log-mapped; translation aligned, scaled, then
+    mean/std-normalized.
+
+    `sign_zero_quirk=True` multiplies by `sign(w)` as the reference does,
+    which zeroes the quaternion (logq = 0) when w == 0 exactly; the default
+    keeps the true pi*axis log map."""
+    poses_in = np.asarray(poses_in, dtype=np.float64)
+    n = len(poses_in)
+    t = poses_in[:, [3, 7, 11]]
+    R = poses_in.reshape(n, 3, 4)[:, :3, :3]
+    q = _mat2quat_f32(align_R[None] @ R)
+    if sign_zero_quirk:
+        q = q * np.sign(q[:, :1])
+    else:
+        q = q * np.where(q[:, :1] >= 0, 1.0, -1.0)
+    logq = _qlog_f32(q)
+    t = (t - align_t) @ align_R.T * align_s
+    t = (t - mean_t) / std_t
+    return np.concatenate([t, logq], axis=1).astype(np.float64)
+
+
+def process_poses_cambridge(pose_4x4: np.ndarray) -> np.ndarray:
+    """4x4 pose -> 6-dof [t, logq]."""
+    R = np.asarray(pose_4x4)[:3, :3]
+    t = np.asarray(pose_4x4)[:3, -1]
+    q = _mat2quat_f32(R[None])[0]
+    if q[0] < 0:
+        q = -q
+    logq = _qlog_f32(q[None])[0]
+    return np.concatenate([t, logq])
+
+
+def process_poses_cambridge_norod(pose_7: np.ndarray) -> np.ndarray:
+    """[t(3), q(4)] -> [t(3), logq(3)]."""
+    pose_7 = np.asarray(pose_7, dtype=np.float64)
+    t, q = pose_7[:3], pose_7[3:].copy()
+    if q[0] < 0:
+        q = -q
+    logq = _qlog_f32(q[None])[0]
+    return np.concatenate([t, logq])

@@ -13,12 +13,18 @@ import numpy as np
 import torch
 
 from relpose_gnn_tpu_torch import resolve_device
+from relpose_gnn_tpu_torch.data.transforms import pil_image
 from relpose_gnn_tpu_torch.models.netvlad import NetVLADEncoder
 from relpose_gnn_tpu_torch.models.posenet import init_weights
+from relpose_gnn_tpu_torch.ops.camera import crop_by_intrinsic
 from relpose_gnn_tpu_torch.retrieval import subsample
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+# 7-Scenes Kinect intrinsics: RGB camera vs depth camera
+K_7SCENES_RGB = np.array([[525.0, 0, 320], [0, 525.0, 240], [0, 0, 1]])
+K_7SCENES_DEPTH = np.array([[585.0, 0, 320], [0, 585.0, 240], [0, 0, 1]])
 
 
 def imagenet_normalize(images: np.ndarray) -> np.ndarray:
@@ -30,21 +36,14 @@ def imagenet_normalize(images: np.ndarray) -> np.ndarray:
 def netvlad_preprocess_7scenes(img_01: np.ndarray,
                                out_hw: tuple[int, int] = (192, 256)
                                ) -> np.ndarray:
-    """NetVLAD input for an already-resized 7-Scenes frame: resize to
-    192x256 (PIL bilinear on the uint8-quantised image) and
-    ImageNet-normalize.
-
-    A raw 640x480 frame needs the field-of-view crop from the RGB to the
-    depth intrinsics first (the JAX package's
-    `ops/camera.py::crop_by_intrinsic`), which arrives with the camera ops
-    of the model-zoo slice; until then it raises."""
-    from PIL import Image
-
+    """Reference NetVLAD input geometry for a 7-Scenes frame: a raw
+    640x480 frame is first cropped from the RGB to the depth intrinsics'
+    field of view (`ops/camera.py::crop_by_intrinsic`); every frame is then
+    resized to 192x256 (PIL bilinear on the uint8-quantised image) and
+    ImageNet-normalized."""
+    Image = pil_image()
     if img_01.shape[:2] == (480, 640):
-        raise NotImplementedError(
-            "a raw 640x480 frame needs the intrinsics crop of ops/camera.py "
-            "(ROADMAP.md, 'Modules to port', the rest of the model zoo); "
-            "pass an already-resized frame")
+        img_01 = crop_by_intrinsic(img_01, K_7SCENES_RGB, K_7SCENES_DEPTH)
     pil = Image.fromarray((np.clip(img_01, 0, 1) * 255).astype(np.uint8))
     out = np.asarray(pil.resize((out_hw[1], out_hw[0]), Image.BILINEAR),
                      np.float32) / 255.0

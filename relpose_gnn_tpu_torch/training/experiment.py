@@ -8,18 +8,24 @@ layout (train.py:115-127) as packed arrays (data/packed.py).
 
 `run_training` and `run_eval` run on `device`: None means the CUDA card
 (they raise where there is none), "cpu" is an explicit request.  The
-training feed is the numpy memmap path (`data_iterator` +
-`device_prefetch`).  What belongs to later slices raises
-NotImplementedError naming its ROADMAP.md queue: `mesh_data > 0`
-(multi-GPU), `device_cache` and reading raw frames for the cached-serving
-eval (the data feed).  The JAX package's C++ feed is not ported (same
-slice) and its compile cache is dropped (a TPU workaround).
+training feed, as in the JAX package:
+  * `device_cache=True`: every store uploaded once and batches gathered
+    on the device (`data/device_cache.py::DeviceCachedFeed`), for the
+    training epochs and the evals;
+  * else the native graphio runtime (`data/native_io.py::
+    NativeConcatDataset`) where it builds, else the numpy memmaps, through
+    `data_iterator` + `device_prefetch`; the log says which.
+`run_eval(serving_data_path=...)` reads the scene's raw training frames
+with the 7-Scenes / Cambridge loaders (PIL decode).  `mesh_data > 0`
+raises NotImplementedError naming its ROADMAP.md queue (multi-GPU); the
+JAX package's compile cache is dropped (a TPU workaround).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import os.path as osp
 from pathlib import Path
 
@@ -27,10 +33,17 @@ import numpy as np
 import torch
 
 from relpose_gnn_tpu_torch import resolve_device
+from relpose_gnn_tpu_torch.data import native_io
+from relpose_gnn_tpu_torch.data.cambridge import (CAMBRIDGE_SCENES,
+                                                  CambridgeLandmark)
+from relpose_gnn_tpu_torch.data.device_cache import DeviceCachedFeed
+from relpose_gnn_tpu_torch.data.graph_builder import _fit
 from relpose_gnn_tpu_torch.data.packed import (ConcatPackedDataset,
                                                PackedGraphDataset)
 from relpose_gnn_tpu_torch.data.pipeline import data_iterator, device_prefetch
+from relpose_gnn_tpu_torch.data.seven_scenes import SEVEN_SCENES, SevenScenes
 from relpose_gnn_tpu_torch.evaluation.evaluator import (compute_pose_errors,
+                                                        evaluate_dataset,
                                                         save_poses)
 from relpose_gnn_tpu_torch.models.posenet import (RelPoseGNN,
                                                   RelPoseGNNConfig,
@@ -38,16 +51,10 @@ from relpose_gnn_tpu_torch.models.posenet import (RelPoseGNN,
 from relpose_gnn_tpu_torch.ops import graph as graph_ops
 from relpose_gnn_tpu_torch.training import checkpoints as ckpt
 from relpose_gnn_tpu_torch.training.trainer import (TrainerConfig,
-                                                    check_fuse_ok,
                                                     create_train_state,
                                                     make_eval_step,
                                                     make_train_step)
 from relpose_gnn_tpu_torch.utils.logging import MetricsWriter, get_logger
-
-SEVEN_SCENES = ("heads", "chess", "redkitchen", "pumpkin", "office", "fire",
-                "stairs")
-CAMBRIDGE_SCENES = ("KingsCollege", "OldHospital", "StMarysChurch",
-                    "ShopFacade", "GreatCourt")
 
 
 @dataclasses.dataclass
@@ -91,7 +98,7 @@ class ExperimentConfig:
     ckpt_dir: str = ""                 # default <logdir>/ckpt
     eval_fuse: str = "first"           # 'first' | 'mean' | 'median'
     serving_compact_edges: bool = True  # cached-serving eval on edge lists
-    device_cache: bool = False         # stores on the device (not ported)
+    device_cache: bool = False         # stores held on the device
 
 
 def _refuse_unported(cfg: ExperimentConfig) -> None:
@@ -99,10 +106,6 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
         raise NotImplementedError(
             "mesh_data > 0 (training over several cards) is in ROADMAP.md, "
             "'Modules to port', the multi-GPU slice")
-    if cfg.device_cache:
-        raise NotImplementedError(
-            "device_cache (stores held on the card) is in ROADMAP.md, "
-            "'Modules to port', the data feed and entry points slice")
 
 
 def static_anchor_for(cfg: ExperimentConfig) -> int | None:
@@ -111,8 +114,7 @@ def static_anchor_for(cfg: ExperimentConfig) -> int | None:
     first edge into node 0 in construction order."""
     if cfg.knn != 0:
         return None
-    src, tgt = graph_ops.fc_edge_index(cfg.seq_len)
-    return int(src[np.flatnonzero(tgt == 0)[0]])
+    return graph_ops.first_edge_anchor(graph_ops.fc_edge_index(cfg.seq_len))
 
 
 def scene_lists(cfg: ExperimentConfig) -> tuple[list[str], list[str]]:
@@ -181,18 +183,17 @@ def pose_stats(cfg: ExperimentConfig):
 
 
 def evaluate_scene(eval_step, state, ds: PackedGraphDataset, batch_size: int,
-                   mean_t, std_t, device: torch.device):
-    """Batched whole-scene eval in store order."""
-    it = data_iterator(ds, batch_size=batch_size, shuffle=False, epochs=1,
-                       drop_remainder=False)
-    preds, targs = [], []
-    for batch in device_prefetch(it, ds.mean, ds.std, device):
-        out = eval_step(state, batch)
-        check_fuse_ok(out, "run_eval")
-        preds.append(out["pred"].float().cpu().numpy())
-        targs.append(out["target"].float().cpu().numpy())
-    return compute_pose_errors(np.concatenate(preds), np.concatenate(targs),
-                               pose_mean=mean_t, pose_std=std_t)
+                   mean_t, std_t, device: torch.device,
+                   cached: DeviceCachedFeed | None = None):
+    """Batched whole-scene eval in store order, from the store held on the
+    device where `cached` is given, else through the host feed."""
+    if cached is not None:
+        batches = (b for b, _ in cached.eval_batches(batch_size))
+    else:
+        it = data_iterator(ds, batch_size=batch_size, shuffle=False,
+                           epochs=1, drop_remainder=False)
+        batches = device_prefetch(it, ds.mean, ds.std, device)
+    return evaluate_dataset(eval_step, state, batches, mean_t, std_t)
 
 
 def _trainer_config(cfg: ExperimentConfig, steps_per_epoch: int = 1000
@@ -213,6 +214,26 @@ def run_training(cfg: ExperimentConfig,
     metrics_out = MetricsWriter(str(logdir / "metrics.jsonl"))
 
     train_ds, test_ds = load_datasets(cfg)
+    cached_train = cached_test = None
+    train_feed = train_ds
+    if cfg.device_cache:
+        cached_train = DeviceCachedFeed(train_ds, device)
+        cached_test = {s: DeviceCachedFeed(d, device)
+                       for s, d in test_ds.items()}
+        logger.info("training feed: device cache, train %.2f GiB + test "
+                    "%.2f GiB on %s", cached_train.nbytes / 2**30,
+                    sum(c.nbytes for c in cached_test.values()) / 2**30,
+                    device)
+    elif native_io.available():
+        roots = [dataset_root(cfg.train_data_dir, s, cfg.dataset, "train",
+                              cfg.seq_len) for s in scene_lists(cfg)[0]]
+        # gather threads sized to the host, one core left to the step
+        train_feed = native_io.NativeConcatDataset(
+            roots, threads=max(1, min(4, (os.cpu_count() or 1) - 1)))
+        logger.info("training feed: native C++ graphio")
+    else:
+        logger.info("training feed: numpy memmaps (native graphio does "
+                    "not build here)")
     # a dataset smaller than the batch would yield no batch at all
     batch_size = min(cfg.batch_size, max(1, len(train_ds)))
     if batch_size < cfg.batch_size:
@@ -241,9 +262,13 @@ def run_training(cfg: ExperimentConfig,
     best = {s: {"median_t": 1e6, "median_q": 1e6} for s in test_ds}
     if start_epoch > 0:
         _fold_best_from_metrics(metrics_out.path, best)
-    return _training_loop(cfg, tcfg, logger, metrics_out, train_ds, test_ds,
-                          batch_size, state, best, logdir, device,
-                          start_epoch)
+    try:
+        return _training_loop(cfg, tcfg, logger, metrics_out, train_feed,
+                              test_ds, batch_size, state, best, logdir,
+                              device, start_epoch, cached_train, cached_test)
+    finally:
+        if train_feed is not train_ds:
+            train_feed.close()
 
 
 def _fold_best_from_metrics(path: str, best: dict) -> None:
@@ -264,9 +289,10 @@ def _fold_best_from_metrics(path: str, best: dict) -> None:
                         best[s][key] = min(best[s][key], rec[key])
 
 
-def _training_loop(cfg, tcfg, logger, metrics_out, train_ds, test_ds,
+def _training_loop(cfg, tcfg, logger, metrics_out, train_feed, test_ds,
                    batch_size, state, best, logdir, device,
-                   start_epoch: int = 0) -> dict:
+                   start_epoch: int = 0, cached_train=None,
+                   cached_test=None) -> dict:
     train_step = make_train_step(tcfg)
     eval_step = make_eval_step(ref_node=0,
                                static_anchor=static_anchor_for(cfg))
@@ -274,14 +300,19 @@ def _training_loop(cfg, tcfg, logger, metrics_out, train_ds, test_ds,
     for epoch in range(start_epoch, cfg.max_epoch):
         if cfg.recover_nonfinite:
             epoch_start = state.state_dict()
-        it = data_iterator(train_ds, batch_size=batch_size,
-                           seed=cfg.seed + epoch, epochs=1)
+        if cached_train is not None:
+            batches = cached_train.epoch(seed=cfg.seed + epoch,
+                                         batch_size=batch_size)
+        else:
+            it = data_iterator(train_feed, batch_size=batch_size,
+                               seed=cfg.seed + epoch, epochs=1)
+            batches = device_prefetch(it, train_feed.mean, train_feed.std,
+                                      device)
         m = None
         # OR-accumulated on the device over every step (a transient inf
         # mid-epoch must roll back even if later steps recover); read once
         nonfinite = torch.zeros((), dtype=torch.bool, device=device)
-        for batch in device_prefetch(it, train_ds.mean, train_ds.std,
-                                     device):
+        for batch in batches:
             m = train_step(state, batch, cfg.seed)
             nonfinite |= ~torch.isfinite(m["loss"])
         if m is None:
@@ -308,7 +339,8 @@ def _training_loop(cfg, tcfg, logger, metrics_out, train_ds, test_ds,
         if epoch > cfg.eval_after_epoch:
             for s, ds in test_ds.items():
                 err = evaluate_scene(eval_step, state, ds, cfg.batch_size,
-                                     mean_t, std_t, device)
+                                     mean_t, std_t, device,
+                                     cached=(cached_test or {}).get(s))
                 logger.info("[scene %s epoch %04d] %s", s, epoch, err)
                 metrics_out.write(state.step,
                                   {"median_t": err.median_t,
@@ -375,17 +407,6 @@ def run_eval(cfg: ExperimentConfig, weights: str | None = None,
     return results
 
 
-def _fit(img: np.ndarray, height: int, width: int) -> np.ndarray:
-    """Centre-crop or pad an [H', W', 3] image to [height, width]."""
-    h, w = img.shape[:2]
-    out = np.zeros((height, width, 3), np.float32)
-    ch, cw = min(h, height), min(w, width)
-    y0, x0 = (h - ch) // 2, (w - cw) // 2
-    oy, ox = (height - ch) // 2, (width - cw) // 2
-    out[oy:oy + ch, ox:ox + cw] = img[y0:y0 + ch, x0:x0 + cw]
-    return out
-
-
 def load_database_images(database, h: int, w: int) -> np.ndarray:
     """A database split as uint8 [M, H, W, 3] for serving eval.  A corrupt
     frame (`load_image` -> None) takes the next valid frame's pixels, the
@@ -412,13 +433,16 @@ def load_database_images(database, h: int, w: int) -> np.ndarray:
 
 
 def _raw_database(cfg: ExperimentConfig, scene: str, root: str, h: int):
-    """The scene's raw train split (the graph builder's neighbour
-    source): the 7-Scenes / Cambridge loaders."""
-    raise NotImplementedError(
-        "reading raw 7-Scenes / Cambridge frames needs the dataset loaders "
-        "(data/seven_scenes.py, data/cambridge.py), which are in "
-        "ROADMAP.md, 'Modules to port', the data feed and entry points "
-        "slice")
+    """The scene's raw train split (`build_graphs`' neighbour
+    source), raw [0, 1] pixels at the stores' size: the packed header's
+    statistics normalise on the device."""
+    if cfg.dataset == "7Scenes":
+        return SevenScenes(scene, root, train=True, image_size=h)
+    return CambridgeLandmark(
+        scene, root, train=True, image_size=h,
+        pose_stats_file=cfg.pose_stats_file or None,
+        normalize_translation=bool(cfg.pose_stats_file),
+        normalize_images=False)
 
 
 def _evaluate_scene_serving(cfg: ExperimentConfig, model: RelPoseGNN, ds,

@@ -1,6 +1,7 @@
-"""The port's service benches (relpose_gnn_tpu_torch/benchmarks/) on the CPU
-at a tiny size (resnet18, widths 32, 4-node graphs, 4 NetVLAD clusters,
-32x40 frames, float32): each runs end to end with `--device cpu`, prints
+"""The port's service and feed benches (relpose_gnn_tpu_torch/benchmarks/) on
+the CPU at a tiny size (resnet18, widths 32, 4-node graphs, 4 NetVLAD
+clusters, 32x40 frames, float32; the feed bench over 2 x 6 graphs of
+3 nodes at 16x20): each runs end to end with `--device cpu`, prints
 one parseable JSON line with its documented keys, writes the same record
 to `--json`, and reports `mfu` as null off the card (in (0, 1) on one).
 The timing helpers are held on their own.
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from relpose_gnn_tpu_torch.benchmarks import (_synthetic, _util, bench_eval,
+                                              bench_feed,
                                               bench_retrieval_stages,
                                               bench_service,
                                               bench_service_bisect)
@@ -136,6 +138,28 @@ def test_bench_eval(capsys, tmp_path):
     assert rec["self_check_max_err"] < 1e-4        # float32: equal anchors
 
 
+FEED = ["--device", "cpu", "--graphs", "6", "--nodes", "3", "--height",
+        "16", "--width", "20", "--batch", "2", "--batches", "4"]
+
+
+def test_bench_feed(capsys, tmp_path):
+    rec = _run(capsys, bench_feed, FEED, tmp_path)
+    assert DEVICE_KEYS | {"feed", "batch", "stores", "graphs_per_store",
+                          "graph_shape"} == set(rec)
+    gb = 2 * 3 * 16 * 20 * 3 / 1e9
+    legs = rec["feed"]
+    assert [r["threads"] for r in legs["native"]] == [1, 2, 4]
+    for leg in (legs["numpy"], legs["cached"], *legs["native"]):
+        assert leg["batches_per_s"] > 0
+        assert leg["gb_per_s"] == pytest.approx(leg["batches_per_s"] * gb)
+    cached = legs["cached"]
+    assert cached["batches_per_s"] == pytest.approx(
+        1e3 / cached["ms_per_batch"])
+    # 2 stores x 6 graphs: uint8 images, poses, adj and each row's stats
+    assert cached["nbytes"] == 12 * (3 * 16 * 20 * 3 + 3 * 6 * 4 + 9 + 24)
+    assert cached["upload_s"] >= 0
+
+
 def test_benches_refuse_to_run_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -144,6 +168,8 @@ def test_benches_refuse_to_run_without_a_card():
                   bench_retrieval_stages, bench_eval):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             bench.main(no_device)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_feed.main(FEED[2:])
 
 
 # ---------------------------------------------------------------------------

@@ -172,7 +172,6 @@ def test_config_fields_roots_and_anchors_match_jax():
 
 @pytest.mark.parametrize("kw,what", [
     (dict(mesh_data=2), "multi-GPU"),
-    (dict(device_cache=True), "data feed"),
 ])
 def test_later_slices_raise_naming_the_roadmap(stores, tmp_path, kw, what):
     root, _ = stores
@@ -447,13 +446,6 @@ class _PoolDatabase:
 
     def load_image(self, i):
         return None if i == 3 else self.pool[i].astype(np.float32) / 255.0
-
-
-def test_serving_eval_needs_the_loaders_of_a_later_slice(stores, tmp_path):
-    root, _ = stores
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        exp.run_eval(tiny_cfg(root, save_dir=str(tmp_path)),
-                     serving_data_path=str(tmp_path), device="cpu")
 
 
 def test_serving_eval_matches_the_pixel_path(stores, start_weights, tmp_path,

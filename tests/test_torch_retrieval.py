@@ -154,9 +154,10 @@ def test_numpy_selection_equals_the_jax_packages():
     np.testing.assert_array_equal(
         netvlad_index.netvlad_preprocess_7scenes(imgs[0], (8, 6)),
         jax_index.netvlad_preprocess_7scenes(imgs[0], (8, 6)))
-    with pytest.raises(NotImplementedError, match="intrinsics crop"):
-        netvlad_index.netvlad_preprocess_7scenes(
-            np.zeros((480, 640, 3), np.float32))
+    raw = rng.random((480, 640, 3)).astype(np.float32)
+    np.testing.assert_array_equal(
+        netvlad_index.netvlad_preprocess_7scenes(raw),
+        jax_index.netvlad_preprocess_7scenes(raw))
 
 
 # ---------------------------------------------------------------------------
