@@ -214,18 +214,34 @@ class RelPoseGNN(nn.Module):
         return pred_abs, pred_rel, adj, aux
 
 
+# the standard deviation of a unit normal truncated to [-2, 2]: flax's
+# variance_scaling divides by it so that the truncated draw keeps the
+# variance it asks for
+_TRUNC_STD = 0.87962566103423978
+
+
+def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """Unit normals truncated to [-2, 2], drawn on the generator's device
+    as `jax.random.truncated_normal` draws them: a uniform between the
+    bounds' CDF values through the inverse error function."""
+    lo, hi = (math.erf(b / math.sqrt(2.0)) for b in (-2.0, 2.0))
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    u = u * (hi - lo) + lo
+    return (torch.erfinv(u) * math.sqrt(2.0)).clamp_(-2.0, 2.0)
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded random weights: every conv and linear weight drawn from
-    N(0, 1/fan_in) (flax's lecun_normal, untruncated), biases zero, BN at
+    """Seeded random weights as flax initialises the JAX model: every conv
+    and linear weight from `lecun_normal` (a normal truncated at two
+    standard deviations, scaled to variance 1/fan_in), biases zero, BN at
     its identity (scale 1, shift 0, running mean 0, var 1).  Draws on the
     generator's device, in module order."""
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
-            w = torch.randn(m.weight.shape, generator=generator,
-                            device=generator.device)
-            m.weight.copy_(w / math.sqrt(fan_in))
+            w = _truncated_normal(m.weight.shape, generator)
+            m.weight.copy_(w / (_TRUNC_STD * math.sqrt(fan_in)))
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):

@@ -16,7 +16,8 @@ from relpose_gnn_tpu_torch.benchmarks import (_synthetic, _util, bench_eval,
                                               bench_feed,
                                               bench_retrieval_stages,
                                               bench_service,
-                                              bench_service_bisect)
+                                              bench_service_bisect,
+                                              train_smoke)
 from relpose_gnn_tpu_torch.evaluation.service import (RelocalizationService,
                                                       ServiceConfig)
 
@@ -160,6 +161,46 @@ def test_bench_feed(capsys, tmp_path):
     assert cached["upload_s"] >= 0
 
 
+SMOKE = ["--device", "cpu", "--steps", "3", "--every", "2", "--batch", "2",
+         "--eval-batch", "4", "--backbone", "resnet18", "--dims", "32",
+         "--seq-len", "4", "--height", "32", "--width", "40", "--dtype",
+         "float32"]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_train_smoke(capsys, tmp_path, seed):
+    lines = []
+    path = tmp_path / "record.json"
+    rec = train_smoke.main([*SMOKE, "--seed", str(seed), "--json",
+                            str(path)], log=lines.append)
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last == json.loads(json.dumps(rec)) == json.loads(path.read_text())
+    assert DEVICE_KEYS | {"before", "after", "learned", "trajectory",
+                          "losses_finite", "steps", "batch", "seed",
+                          "eval_batch",
+                          "eval_batches", "seconds", "steps_per_s",
+                          "attention_launches", "peak_memory_gib", "dtype",
+                          "hw"} == set(last)
+    assert last["platform"] == "cpu" and last["card"] is None
+    # evaluated before training, at step 2 and after the last step
+    assert [p["step"] for p in last["trajectory"]] == [0, 2, 3]
+    assert last["eval_batches"] == 3 and last["steps"] == 3
+    assert last["before"] == last["trajectory"][0]["median_t"]
+    assert last["after"] == last["trajectory"][-1]["median_t"]
+    assert last["learned"] == (last["after"] < 0.5 * last["before"])
+    assert last["losses_finite"] and all(
+        p["loss"] is not None and p["t_loss"] > 0
+        for p in last["trajectory"][1:])
+    assert last["seed"] == seed
+    assert last["steps_per_s"] == pytest.approx(3 / last["seconds"])
+    # the plain core on the CPU: no kernel launch
+    assert last["attention_launches"] == 0
+    assert last["peak_memory_gib"] is None
+    assert [ln.split(":")[0] for ln in lines[:3]] == [
+        "before", "step 2", "step 3"]
+    assert len(lines) == 4 and lines[3].startswith("after 3 steps")
+
+
 def test_benches_refuse_to_run_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -170,6 +211,8 @@ def test_benches_refuse_to_run_without_a_card():
             bench.main(no_device)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bench_feed.main(FEED[2:])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_smoke.main(SMOKE[2:])
 
 
 # ---------------------------------------------------------------------------

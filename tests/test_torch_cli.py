@@ -1,0 +1,234 @@
+"""The port's train and test entry points (relpose_gnn_tpu_torch/cli/)
+against the JAX package's `cli/train.py` and `cli/test.py`, on the CPU, on
+tiny packed stores (4-node graphs at 32x40, resnet18, dims 32).
+
+  * `parse_args` gives the JAX CLI's namespace for the same argv, apart
+    from the port's own `--device`.  The JAX CLIs are loaded by file path;
+    they import only argparse and sys at module level.
+  * `main` trains (one epoch, a checkpoint after it) and evaluates that
+    checkpoint; the test entry's medians equal `run_eval` on the same
+    weights exactly (the same float32 CPU computation), and the saved
+    weights load into the port's model with strict=True.
+  * Every flag whose work the port does not have yet raises
+    NotImplementedError before anything runs.
+"""
+
+import contextlib
+import importlib.util
+import io
+import os
+import os.path as osp
+
+import numpy as np
+import pytest
+import torch
+
+from relpose_gnn_tpu_torch.cli import test as cli_test
+from relpose_gnn_tpu_torch.cli import train as cli_train
+from relpose_gnn_tpu_torch.data.packed import PackedGraphWriter
+from relpose_gnn_tpu_torch.training import experiment as exp
+
+REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
+N, H, W = 4, 32, 40
+TINY = ["--backbone", "resnet18", "--feat-dim", "32", "--seq-len", str(N),
+        "--dtype", "float32", "--knn", "2", "--batch-size", "4"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two intra-op threads while this module runs: the suite runs several
+    test processes on one host, and torch's default of one thread a core
+    in each of them oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _jax_cli(name: str):
+    spec = importlib.util.spec_from_file_location(
+        f"_jax_cli_{name}", osp.join(REPO, "cli", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+TRAIN_ARGVS = [
+    ["--train-data-dir", "a", "--test-data-dir", "b"],
+    ["--train-data-dir", "a", "--test-data-dir", "b", "--experiment", "2",
+     "--dataset", "7Scenes", "--train-scene", "chess", "--test-scene",
+     "chess", "--seed", "3", "--lambda-AP", "0.5", "--ckpt-every", "1",
+     "--device-cache", "--resume"],
+    ["--train-data-dir", "a", "--test-data-dir", "b", "--experiment", "1",
+     "--test-scene", "KingsCollege", "--model-name", "R2", "--dtype",
+     "float32", "--backbone", "resnet18", "--feat-dim", "64", "--lr",
+     "3e-4", "--knn", "0", "--mesh-model", "2", "--ckpt-dir", "c"],
+    ["--train-data-dir", "a", "--test-data-dir", "b", "--exp-name", "mine",
+     "--max-epoch", "5", "--batch-size", "2", "--seq-len", "4",
+     "--droprate", "0.1", "--srq", "-3", "--saq", "-1", "--gnn-recursion",
+     "1", "--eval-after-epoch", "0", "--weights-filename", "w.pth.tar"],
+]
+TEST_ARGVS = [
+    ["--test-data-dir", "a", "--weights-filename", "w"],
+    ["--test-data-dir", "a", "--weights-filename", "w", "--dataset",
+     "Cambridge", "--test-scene", "ShopFacade", "--batch-size", "8",
+     "--serving-data-path", "raw", "--allow-random-init", "--dense-edges",
+     "--fuse", "median", "--pose-stat-path", "s.txt"],
+    ["--test-data-dir", "a", "--weights-filename", "w", "--seq-len", "4",
+     "--backbone", "resnet18", "--feat-dim", "32", "--dtype", "float32",
+     "--knn", "2", "--gnn-recursion", "3", "--seed", "5", "--model-name",
+     "R1", "--mesh-model", "2"],
+]
+
+
+@pytest.mark.parametrize("argv", TRAIN_ARGVS)
+def test_train_parse_args_equals_jax(argv):
+    got = vars(cli_train.parse_args(argv))
+    assert got.pop("device") is None
+    assert got == vars(_jax_cli("train").parse_args(argv))
+    got = vars(cli_train.parse_args(argv + ["--device", "cpu"]))
+    assert got["device"] == "cpu"
+
+
+@pytest.mark.parametrize("argv", TEST_ARGVS)
+def test_test_parse_args_equals_jax(argv):
+    got = vars(cli_test.parse_args(argv))
+    assert got.pop("device") is None
+    assert got == vars(_jax_cli("test").parse_args(argv))
+
+
+@pytest.fixture(scope="module")
+def stores(tmp_path_factory):
+    """`chess_fc4_sp5_{train,test}` (8 / 5 graphs) written by the port's
+    PackedGraphWriter over a pool of 12 frames."""
+    root = tmp_path_factory.mktemp("graphs")
+    rng = np.random.default_rng(0)
+    pool = rng.integers(0, 256, size=(12, H, W, 3), dtype=np.uint8)
+    pool_poses = rng.normal(size=(12, 6)).astype(np.float32)
+    for split, n in (("train", 8), ("test", 5)):
+        w = PackedGraphWriter(str(root / f"chess_fc4_sp5_{split}"), n, N, H,
+                              W, mean=[0.45, 0.44, 0.4],
+                              std=[0.22, 0.23, 0.21])
+        for _ in range(n):
+            idx = rng.choice(12, N, replace=False)
+            w.add(pool[idx].astype(np.float32) / 255.0, pool_poses[idx],
+                  ~np.eye(N, dtype=bool), nbr_idx=idx[1:])
+        w.finalize()
+    return str(root)
+
+
+@pytest.fixture(scope="module")
+def trained(stores, tmp_path_factory):
+    """cli.train for one epoch with a checkpoint after it; returns (out,
+    save_dir, printed lines)."""
+    save = str(tmp_path_factory.mktemp("out"))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = cli_train.main([
+            "--dataset", "7Scenes", "--experiment", "2", "--train-scene",
+            "chess", "--test-scene", "chess", "--train-data-dir", stores,
+            "--test-data-dir", stores, "--save-dir", save, "--max-epoch",
+            "1", "--ckpt-every", "1", "--eval-after-epoch", "-1",
+            "--device", "cpu", *TINY])
+    return out, save, buf.getvalue().splitlines()
+
+
+def _ckdir(save):
+    return osp.join(save, "7Scenes", "chess",
+                    "7Scenes_single_w_chess_w_test_chess_seed_0", "ckpt")
+
+
+def test_train_entry_trains_and_checkpoints(trained):
+    out, save, lines = trained
+    assert out["state"].step == 2
+    best = out["best"]["chess"]
+    assert np.isfinite(best["median_t"]) and np.isfinite(best["median_q"])
+    assert lines == [f"chess: best median t {best['median_t']:.3f} m, "
+                     f"best median rot {best['median_q']:.2f} deg"]
+    ckdir = _ckdir(save)
+    assert sorted(os.listdir(ckdir)) == ["0"]
+    sd = torch.load(osp.join(ckdir, "0", "train_state.pt"),
+                    map_location="cpu", weights_only=True)
+    model = exp.build_model(exp.ExperimentConfig(
+        backbone="resnet18", feat_dim=32, seq_len=N, knn=2,
+        dtype="float32"), "cpu")
+    model.load_state_dict(sd["model"], strict=True)
+    for k, v in out["state"].model.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v), k
+
+
+def test_test_entry_equals_run_eval(trained, stores, tmp_path, capsys):
+    _, save, _ = trained
+    ckdir = _ckdir(save)
+    got = cli_test.main([
+        "--dataset", "7Scenes", "--test-scene", "chess", "--test-data-dir",
+        stores, "--save-dir", str(tmp_path), "--weights-filename", ckdir,
+        "--device", "cpu", *TINY])
+    want = exp.run_eval(exp.ExperimentConfig(
+        dataset="7Scenes", test_scene="chess", train_scene="chess",
+        experiment=2, train_data_dir=stores, test_data_dir=stores,
+        save_dir=str(tmp_path / "ref"), exp_name="eval", backbone="resnet18",
+        feat_dim=32, seq_len=N, knn=2, dtype="float32", batch_size=4),
+        weights=ckdir, save_predictions=False, device="cpu")
+    assert got.keys() == want.keys() == {"chess"}
+    g, w = got["chess"], want["chess"]
+    assert (g.median_t, g.median_q) == (w.median_t, w.median_q)
+    np.testing.assert_array_equal(g.pred_poses, w.pred_poses)
+    assert capsys.readouterr().out.splitlines()[-1] == (
+        f"chess: median t {w.median_t:.3f} m, median rot "
+        f"{w.median_q:.2f} deg")
+    exported = os.listdir(osp.join(str(tmp_path), "7Scenes", "chess",
+                                   "eval"))
+    assert any(f.endswith(".npz") for f in exported), exported
+
+
+def _orbax_dir(tmp_path):
+    d = tmp_path / "orbax"
+    (d / "3").mkdir(parents=True)
+    (d / "3" / "_CHECKPOINT_METADATA").write_text("{}")
+    return str(d)
+
+
+@pytest.mark.parametrize("extra,slice_", [
+    (["--coordinator", "localhost:1234"], "slice 7"),
+    (["--num-processes", "2"], "slice 7"),
+    (["--mesh-data", "2"], "slice 7"),
+    (["--backbone", "vit"], "slice 8"),
+    (["--weights-filename", "ORBAX"], "slice 6c"),
+])
+def test_train_entry_refuses_unported_flags(stores, tmp_path, extra, slice_):
+    extra = [_orbax_dir(tmp_path) if a == "ORBAX" else a for a in extra]
+    save = tmp_path / "out"
+    with pytest.raises(NotImplementedError, match=slice_):
+        cli_train.main(["--train-data-dir", stores, "--test-data-dir",
+                        stores, "--save-dir", str(save), "--device", "cpu",
+                        *extra])
+    assert not save.exists()
+
+
+@pytest.mark.parametrize("extra,slice_", [
+    (["--mesh-data", "2"], "slice 7"),
+    (["--backbone", "vit"], "slice 8"),
+    (["--weights-filename", "ORBAX"], "slice 6c"),
+])
+def test_test_entry_refuses_unported_flags(stores, tmp_path, extra, slice_):
+    extra = [_orbax_dir(tmp_path) if a == "ORBAX" else a for a in extra]
+    argv = ["--test-data-dir", stores, "--save-dir", str(tmp_path / "out"),
+            "--device", "cpu", "--weights-filename", "w.pth.tar", *extra]
+    with pytest.raises(NotImplementedError, match=slice_):
+        cli_test.main(argv)
+    assert not (tmp_path / "out").exists()
+
+
+def test_entries_need_a_card_unless_asked(stores, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_train.main(["--dataset", "7Scenes", "--experiment", "2",
+                        "--train-scene", "chess", "--test-scene", "chess",
+                        "--train-data-dir", stores, "--test-data-dir",
+                        stores, "--save-dir", str(tmp_path), *TINY])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_test.main(["--test-scene", "chess", "--test-data-dir", stores,
+                       "--save-dir", str(tmp_path), "--weights-filename",
+                       "w.pth.tar", "--allow-random-init", *TINY])

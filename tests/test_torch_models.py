@@ -263,3 +263,27 @@ def test_init_weights_is_seeded_and_lecun_scaled():
     assert abs(w.std().item() * (2 * D) ** 0.5 - 1.0) < 0.1
     assert torch.all(a["gnn1.mlp.0.bias"] == 0)
     assert torch.all(a["feature_extractor.bn1.running_var"] == 1)
+
+
+def test_init_weights_draws_flax_lecun_normal():
+    """Conv and linear weights follow flax's `lecun_normal`: a unit normal
+    truncated to [-2, 2], scaled to variance 1/fan_in.  Against flax's own
+    draws for one kernel of 2^18 values, in units of 1/sqrt(fan_in): the
+    same bound, 2 / 0.8796; the same standard deviation to 1%; every
+    decile within 0.02 of flax's (a decile of 2^18 draws moves by about
+    0.005 from seed to seed)."""
+    fan_in = 1024
+    lin = torch.nn.Linear(fan_in, 256)
+    init_weights(lin, torch.Generator().manual_seed(0))
+    got = lin.weight.detach().numpy().ravel() * fan_in ** 0.5
+    want = np.asarray(jax.nn.initializers.lecun_normal()(
+        jax.random.PRNGKey(0), (fan_in, 256))).ravel() * fan_in ** 0.5
+    bound = 2.0 / 0.87962566103423978
+    for draws in (got, want):
+        assert np.abs(draws).max() <= bound * (1 + 1e-6)
+        assert np.abs(draws).max() > 0.99 * bound
+    assert abs(got.std() - 1.0) < 0.01 and abs(want.std() - 1.0) < 0.01
+    deciles = np.linspace(0.1, 0.9, 9)
+    np.testing.assert_allclose(np.quantile(got, deciles),
+                               np.quantile(want, deciles), atol=0.02)
+    assert torch.all(lin.bias == 0)

@@ -251,7 +251,9 @@ def test_port_and_chip_smoke_never_import_jax():
         "             'utils.logging', 'ops.camera', 'data.transforms',\n"
         "             'data.seven_scenes', 'data.cambridge',\n"
         "             'data.graph_builder', 'data.device_cache',\n"
-        "             'data.native_io', 'benchmarks.bench_feed'):\n"
+        "             'data.native_io', 'benchmarks.bench_feed',\n"
+        "             'data.synthetic', 'benchmarks.train_smoke', 'cli',\n"
+        "             'cli.train', 'cli.test'):\n"
         "    assert 'relpose_gnn_tpu_torch.' + tail in sys.modules, tail\n"
         "print('clean')\n")])
     assert proc.returncode == 0, proc.stderr
