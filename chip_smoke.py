@@ -140,6 +140,25 @@ is no CPU fallback: without CUDA it exits 1 at once.
             predictions equal to `run_eval` on the same weights
             (deterministic algorithms on), 2 x 16 launches, predictions
             exported
+  raw       the raw-frame path from PNG files on disk through the entry
+            points a user calls, at R3's full width (ResNet34 at 256x341,
+            dims 2048; NetVLAD VGG16 64 x 512 at 192x256; bf16):
+            `data/synthetic_scenes.py` writes chess and fire as 640x480
+            PNGs (2 train sequences of 60 frames and a test sequence of
+            60 each), every frame decoded back with `decode_png` equal to
+            the array written, the host resize against the service's
+            on-card `F.interpolate` printed (not held); `cli.build_graphs`
+            in IR mode with cross-connect and a NetVLAD `.tar` for train
+            and test of both scenes (counts, no neighbour in its query's
+            sequence, query pixels = the written frames resized);
+            `cli.train` one epoch on chess and its `.pth.tar`; `cli.test`
+            on it; `cli.serve` on chess, deterministic and stochastic,
+            batch 64, and on both scenes (`MultiSceneService`): exports
+            finite, unit quaternions, one row a query; `cli.parity` over
+            chess's test store, equal to `cli.test` bit for bit
+            (deterministic algorithms on); each step's seconds, attention
+            launches (2 a train step, eval batch and query batch) and
+            decode and resize rates
   time      CUDA events, median of 20 iterations after warm-up, the forms
             compared in turns within this one run: the attention core
             (kernel, its earlier form `restructured_core/v1`, `exp2_core`,
@@ -208,9 +227,12 @@ from relpose_gnn_tpu_torch.benchmarks import (_synthetic, _util,
                                               bench_service_bisect,
                                               bench_train, train_smoke)
 from relpose_gnn_tpu_torch.benchmarks._util import in_turns, median_ms
+from relpose_gnn_tpu_torch.cli import build_graphs as cli_build_graphs
+from relpose_gnn_tpu_torch.cli import parity as cli_parity
+from relpose_gnn_tpu_torch.cli import serve as cli_serve
 from relpose_gnn_tpu_torch.cli import test as cli_test
 from relpose_gnn_tpu_torch.cli import train as cli_train
-from relpose_gnn_tpu_torch.data import native_io
+from relpose_gnn_tpu_torch.data import image_io, native_io, synthetic_scenes
 from relpose_gnn_tpu_torch.data.device_cache import DeviceCachedFeed
 from relpose_gnn_tpu_torch.data.graph_builder import (GraphBuilderConfig,
                                                       build_graphs,
@@ -2226,6 +2248,286 @@ def run_entry(dev, root: str, sizes: FeedSizes) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the raw-frame path: PNG files on disk through the entry points
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RawSizes:
+    """What phase `raw` writes and runs: a synthetic 7-Scenes dataset of
+    two scenes of 640x480 PNGs.  A real 7-Scenes split has 1000-4000
+    frames; these are cut for the run's time limit (`reduced`)."""
+    scenes: tuple = ("chess", "fire")
+    train_seqs: int = 2
+    test_seqs: int = 1
+    frames_per_seq: int = 60
+    height: int = 480
+    width: int = 640
+    batch: int = TRAIN_BATCH
+    serve_batch: int = 64
+    clusters: int = 64
+    backbone: str = "resnet34"     # R3 at full width: the CLIs' defaults
+    feat_dim: int = 0
+
+
+def image_io_rates() -> str:
+    """Frames and frames per second of the port's image library since
+    `image_io.reset_counts()`, by decode and resize; `cli.build_graphs`
+    prepares its inputs on worker threads, so a rate is frames per second
+    of decode or resize time summed over threads."""
+    parts = []
+    for kind, (n, secs) in image_io.COUNTS.items():
+        rate = f"{n / secs:.1f} frames/s" if secs else "-"
+        parts.append(f"{kind} {n} frames, {rate}")
+    return "; ".join(parts)
+
+
+def raw_step(what: str, fn):
+    """Run one step of phase `raw` with the kernel's and the image
+    library's counts at 0; prints its seconds, the attention kernel's
+    launches and the decode and resize rates.  Returns (result,
+    launches)."""
+    att_core.LAUNCHES = 0
+    image_io.reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = att_core.LAUNCHES
+    phase("raw", f"{what}: {secs:.2f} s; attention kernel launches "
+          f"{launches}; {image_io_rates()}")
+    return out, launches
+
+
+def generate_raw(dev, root: str, sizes: RawSizes) -> tuple:
+    """Phase `raw`, step 1: the synthetic dataset written by
+    `synthetic_scenes`, every frame decoded again and held equal to the
+    array written; the host resize against the service's on-card one.
+    Returns (raw root, stats root, {path: array written})."""
+    raw, stats = osp.join(root, "raw"), osp.join(root, "stats")
+    written = {}
+    encode = synthetic_scenes.encode_png
+
+    def record(path, img, *args, **kwargs):
+        written[path] = img
+        return encode(path, img, *args, **kwargs)
+
+    t0 = time.perf_counter()
+    with mock.patch.object(synthetic_scenes, "encode_png", record):
+        synthetic_scenes.generate_dataset(
+            raw, sizes.scenes, stats, n_train_seqs=sizes.train_seqs,
+            n_test_seqs=sizes.test_seqs,
+            frames_per_seq=sizes.frames_per_seq, height=sizes.height,
+            width=sizes.width, seed=SEED)
+    t_gen = time.perf_counter() - t0
+    n = len(sizes.scenes) * (sizes.train_seqs + sizes.test_seqs) \
+        * sizes.frames_per_seq
+    check(len(written) == n and all(
+        a.shape == (sizes.height, sizes.width, 3) for a in written.values()),
+        f"synthetic_scenes wrote {len(written)} frames, want {n}")
+    nbytes = sum(osp.getsize(p) for p in written)
+    t0 = time.perf_counter()
+    lib = image_io.load()
+    t_lib = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = [image_io.decode_png(p) for p in written]
+    t_dec = time.perf_counter() - t0
+    bad = [p for p, d in zip(written, decoded)
+           if not np.array_equal(d, written[p])]
+    check(not bad, f"{len(bad)} decoded frames differ from the arrays "
+          f"written, e.g. {bad[:2]}")
+    t0 = time.perf_counter()
+    served = np.stack([image_io.resize_bilinear(d, (W, H)) for d in decoded])
+    t_res = time.perf_counter() - t0
+    # the retrieval input two ways: the host library (PIL's rounding, to
+    # uint8) and the service's on-card resize (float, antialiased)
+    gap = 0.0
+    for i in range(0, len(served), 64):
+        chunk = served[i:i + 64]
+        host = np.stack([image_io.resize_bilinear(f, (256, 192))
+                         for f in chunk]).astype(np.float32) / 255.0
+        x = to_float01(torch.from_numpy(chunk).to(dev)).permute(0, 3, 1, 2)
+        card = F.interpolate(x, size=(192, 256), mode="bilinear",
+                             antialias=True, align_corners=False)
+        gap = max(gap, float((card.permute(0, 2, 3, 1).cpu()
+                              - torch.from_numpy(host)).abs().max()))
+    phase("raw", f"generate: synthetic_scenes wrote {len(sizes.scenes)} "
+          f"scenes x ({sizes.train_seqs} train + {sizes.test_seqs} test "
+          f"sequences) x {sizes.frames_per_seq} frames = {n} PNGs at "
+          f"{sizes.width}x{sizes.height} ({nbytes / 1e6:.1f} MB) in "
+          f"{t_gen:.2f} s; csrc/imageio.cc built (g++) and loaded in "
+          f"{t_lib:.2f} s "
+          f"({osp.basename(lib._name)}); decode_png read every one back "
+          f"equal to the array written, {n / t_dec:.1f} frames/s; "
+          "resize_bilinear "
+          f"{sizes.width}x{sizes.height} -> {W}x{H} {n / t_res:.1f} "
+          f"frames/s (one thread); attention kernel launches 0")
+    phase("raw", f"retrieval input 256x192 of the same {n} frames at "
+          f"{W}x{H}: host resize_bilinear (uint8) against the service's "
+          f"on-card F.interpolate(bilinear, antialias): max abs difference "
+          f"{gap:.5f} of [0, 1] (printed, not held: they round "
+          "differently)")
+    return raw, stats, written
+
+
+def check_raw_store(graphs: str, scene: str, sizes: RawSizes,
+                    written: dict, raw: str) -> None:
+    """A train store built from the PNGs: counts, no neighbour in its
+    query's sequence, and its first graphs' query pixels = the written
+    frames through the loader's resize."""
+    ds = PackedGraphDataset(osp.join(graphs, f"{scene}_fc8_sp5_train"))
+    n = sizes.train_seqs * sizes.frames_per_seq
+    nbr = np.asarray(ds.nbr_idx)
+    seq = np.repeat(np.arange(1, sizes.train_seqs + 1), sizes.frames_per_seq)
+    check(len(ds) == n and nbr.shape == (n, 7)
+          and not (seq[nbr] == seq[:, None]).any(),
+          f"{scene} train store: {len(ds)} graphs, nbr_idx {nbr.shape}, "
+          "a neighbour in its query's own sequence")
+    for i in range(4):
+        frame = written[osp.join(raw, ds.rel_paths[i])]
+        check(np.array_equal(ds.images[i, 0],
+                             image_io.resize_bilinear(frame, (W, H))),
+              f"{scene} train store graph {i}: query pixels differ from "
+              "the frame written")
+
+
+def check_served(path: str, n: int, what: str) -> None:
+    z = np.load(path)
+    check(z["pose6"].shape == (n, 6) and bool(np.isfinite(z["pose6"]).all())
+          and bool(np.isfinite(z["abs_t"]).all()),
+          f"{what}: exported pose6 {z['pose6'].shape}, want ({n}, 6) finite")
+    norms = np.linalg.norm(z["abs_q"], axis=1)
+    check(bool(np.allclose(norms, 1.0, atol=1e-5)),
+          f"{what}: quaternion norms {norms.min()}..{norms.max()}")
+
+
+def run_raw(dev, root: str, sizes: RawSizes) -> dict:
+    """Phase `raw`: the raw-frame path on the card through the entry
+    points a user calls, from PNG files on disk: generate, build, train and
+    test, serve one scene and two, parity.  Returns the attention kernel's
+    launches by step."""
+    raw, stats, written = generate_raw(dev, root, sizes)
+    graphs, save = osp.join(root, "graphs"), osp.join(root, "out")
+    nv_tar = osp.join(root, "netvlad_vgg16.tar")
+    encoder = _synthetic.netvlad_encoder(dev, sizes.clusters,
+                                         torch.bfloat16, SEED + 21)
+    torch.save({"state_dict": {k: v.cpu() for k, v in
+                               encoder.state_dict().items()}}, nv_tar)
+    del encoder
+    launches = {}
+    n_train = sizes.train_seqs * sizes.frames_per_seq
+    n_test = sizes.test_seqs * sizes.frames_per_seq
+    first = sizes.scenes[0]
+    for scene in sizes.scenes:
+        for mode, want in (("train", n_train), ("test", n_test)):
+            n, _ = raw_step(
+                f"cli.build_graphs {scene} {mode} (IR, "
+                f"--cross-connect, NetVLAD {sizes.clusters} x 512 from "
+                f"{osp.basename(nv_tar)} at 192x256, bf16)",
+                lambda: cli_build_graphs.main([
+                    scene, mode, "--data-path", raw, "--graph-data-path",
+                    graphs, "--stats-path", stats, "--cross-connect",
+                    "--netvlad-checkpoint", nv_tar]))
+            check(n == want, f"cli.build_graphs {scene} {mode} wrote {n} "
+                  f"graphs, want {want}")
+        check_raw_store(graphs, scene, sizes, written, raw)
+    written.clear()
+
+    width_args = ["--backbone", sizes.backbone, "--feat-dim",
+                  str(sizes.feat_dim)]
+    model_args = ["--dataset", "7Scenes", "--seq-len", "8", "--dtype",
+                  "bfloat16", "--batch-size", str(sizes.batch), *width_args]
+    steps = n_train // sizes.batch
+    eval_batches = -(-n_test // sizes.batch)
+    out, launches["raw cli.train"] = raw_step(
+        f"cli.train --experiment 2 {first}, R3 bf16 batch "
+        f"{sizes.batch}, 1 epoch = {steps} steps + eval",
+        lambda: cli_train.main([
+            "--experiment", "2", "--train-scene", first, "--test-scene",
+            first, "--train-data-dir", graphs, "--test-data-dir", graphs,
+            "--save-dir", save, "--max-epoch", "1",
+            "--eval-after-epoch", "-1", *model_args]))
+    check(out["state"].step == steps and launches["raw cli.train"]
+          == 2 * (steps + eval_batches),
+          f"cli.train: {out['state'].step} steps, "
+          f"{launches['raw cli.train']} launches, want {steps} and "
+          f"2 x ({steps} + {eval_batches})")
+    pth = save_torch_checkpoint(out["state"], osp.join(root, "r3.pth.tar"),
+                                epoch=0)
+    del out
+    with deterministic_algorithms():
+        tested, launches["raw cli.test"] = raw_step(
+            f"cli.test on {osp.basename(pth)}, batch {sizes.batch}",
+            lambda: cli_test.main([
+                "--test-scene", first, "--test-data-dir", graphs,
+                "--save-dir", save, "--weights-filename", pth,
+                *model_args]))
+    check(launches["raw cli.test"] == 2 * eval_batches
+          and np.isfinite(tested[first].median_t),
+          f"cli.test: {launches['raw cli.test']} launches, want "
+          f"2 x {eval_batches}; median {tested[first].median_t}")
+
+    serve_args = ["--data-path", raw, "--stats-path", stats, "--weights",
+                  pth, "--netvlad-checkpoint", nv_tar, "--netvlad-clusters",
+                  str(sizes.clusters), "--batch-size", str(sizes.serve_batch),
+                  *width_args]
+    batches = -(-n_test // sizes.serve_batch)
+    for mode, extra in (("deterministic", ["--deterministic"]),
+                        ("stochastic", [])):
+        npz = osp.join(root, f"served_{mode}.npz")
+        err, launches[f"raw cli.serve {mode}"] = raw_step(
+            f"cli.serve {first}, {mode}, batch {sizes.serve_batch}: "
+            f"database of {n_train} frames, {n_test} queries",
+            lambda: cli_serve.main(["--scene", first, *serve_args,
+                                    "--out", npz, *extra]))
+        check(launches[f"raw cli.serve {mode}"] == 2 * batches
+              and np.isfinite(err.median_t),
+              f"cli.serve {mode}: {launches[f'raw cli.serve {mode}']} "
+              f"launches, want 2 x {batches}")
+        check_served(npz, n_test, f"cli.serve {mode}")
+    npz = osp.join(root, "served_scenes.npz")
+    results, launches["raw cli.serve two scenes"] = raw_step(
+        f"cli.serve {' '.join(sizes.scenes)} (MultiSceneService), "
+        f"stochastic, batch {sizes.serve_batch}",
+        lambda: cli_serve.main(["--scene", *sizes.scenes, *serve_args,
+                                "--out", npz]))
+    check(sorted(results) == sorted(sizes.scenes)
+          and launches["raw cli.serve two scenes"]
+          == 2 * batches * len(sizes.scenes),
+          f"cli.serve two scenes: {sorted(results)}, "
+          f"{launches['raw cli.serve two scenes']} launches")
+    for s in sizes.scenes:
+        check_served(npz.replace(".npz", f"_{s}.npz"), n_test,
+                     f"cli.serve two scenes, {s}")
+
+    with deterministic_algorithms():
+        rows, launches["raw cli.parity"] = raw_step(
+            f"cli.parity over {first}_fc8_sp5_test, batch "
+            f"{sizes.batch}, bf16",
+            lambda: cli_parity.main([
+                "--weights", pth, "--graph-data-dir", graphs, "--scenes",
+                first, "--batch-size", str(sizes.batch), "--backbone",
+                sizes.backbone]))
+    (scene, err, pub), = rows
+    want = tested[first]
+    check(scene == first and pub == cli_parity.PUBLISHED_7SCENES[first]
+          and (err.median_t, err.median_q) == (want.median_t, want.median_q)
+          and np.array_equal(err.pred_poses, want.pred_poses)
+          and launches["raw cli.parity"] == 2 * eval_batches,
+          f"cli.parity: medians {err.median_t}, {err.median_q} vs "
+          f"cli.test's {want.median_t}, {want.median_q}; "
+          f"{launches['raw cli.parity']} launches")
+    phase("raw", f"cli.parity equal to cli.test on the same .pth.tar "
+          f"(medians {err.median_t:.4f} m, {err.median_q:.4f} deg and "
+          "predictions, deterministic algorithms on); served exports "
+          f"finite, unit quaternions, {n_test} rows each")
+    phase("raw", f"reduced: {n_train} train + {n_test} test frames a "
+          "scene (a 7-Scenes split has 1000-4000) for the run's time limit;"
+          " no width cut")
+    return launches
+
+
 def time_feed(dev, card: str, root: str, sizes: FeedSizes,
               model_kw: dict) -> dict:
     """The R3 train step at batch 8 fed by DeviceCachedFeed and by the
@@ -2699,6 +3001,8 @@ def main() -> int:
         att_times = time_cached_eval(dev, model, card)
         att_times.update(time_train(dev, card))
         att_times.update(time_feed(dev, card, feed_root, feed_sizes, {}))
+    with tempfile.TemporaryDirectory() as raw_root:
+        att_launches.update(run_raw(dev, raw_root, RawSizes()))
     variant_times, variant_bench_err = time_variants(dev, card,
                                                      variant_bench_ms)
     for mode, (svc, queries) in timed.items():

@@ -1,13 +1,23 @@
-"""The port's train and test entry points.
+"""The port's entry points.
 
+    python -m relpose_gnn_tpu_torch.cli.build_graphs chess train \\
+        --data-path raw/ --graph-data-path graphs/ --cross-connect \\
+        --netvlad-checkpoint netvlad_vgg16.tar
     python -m relpose_gnn_tpu_torch.cli.train --dataset 7Scenes \\
         --experiment 2 --train-scene chess --test-scene chess \\
         --train-data-dir graphs/ --test-data-dir graphs/
     python -m relpose_gnn_tpu_torch.cli.test --dataset 7Scenes \\
         --test-scene chess --test-data-dir graphs/ \\
         --weights-filename outputs/7Scenes/chess/<exp>/ckpt
+    python -m relpose_gnn_tpu_torch.cli.serve --scene chess \\
+        --data-path raw/ --weights epoch_199.pth.tar \\
+        --netvlad-checkpoint netvlad_vgg16.tar
+    python -m relpose_gnn_tpu_torch.cli.parity \\
+        --weights relpose_gnn__multi_39.pth.tar --graph-data-dir graphs/
+    python -m relpose_gnn_tpu_torch.cli.compute_pose_stats \\
+        --data-path Cambridge/ --output pose_stats.txt
 
-Counterparts of the JAX package's `cli/train.py` and `cli/test.py`: the
+Counterparts of the JAX package's `cli/` scripts of the same names: the
 same flags, defaults, choices and experiment names, plus `--device`
 (default: the CUDA card; `cpu` must be asked for).  A flag whose work the
 port does not have yet raises NotImplementedError naming the ROADMAP.md
@@ -19,6 +29,10 @@ from __future__ import annotations
 import os
 import os.path as osp
 
+import torch
+
+from relpose_gnn_tpu_torch.models.netvlad import NetVLADEncoder
+from relpose_gnn_tpu_torch.retrieval.netvlad_index import seeded_encoder
 from relpose_gnn_tpu_torch.training import checkpoints as ckpt
 
 
@@ -28,24 +42,48 @@ def add_device_arg(p) -> None:
                         "be asked for)")
 
 
+def netvlad_encoder(checkpoint: str, num_clusters: int = 64,
+                    dtype: torch.dtype | None = torch.bfloat16,
+                    seed: int = 0) -> NetVLADEncoder:
+    """VGG16 + NetVLAD with the weights of `checkpoint` (the released
+    `netvlad_vgg16.tar` layout, `strict=True`), or drawn from `seed`
+    where it is empty (a smoke run: retrieval means nothing then)."""
+    if not checkpoint:
+        return seeded_encoder(num_clusters, 512, dtype, seed).eval()
+    encoder = NetVLADEncoder(num_clusters=num_clusters, encoder_dim=512,
+                             dtype=dtype)
+    encoder.load_state_dict(ckpt.read_state_dict(checkpoint), strict=True)
+    return encoder.eval()
+
+
 def refuse_unported(args) -> None:
-    """Raise NotImplementedError for a flag the port cannot honour yet."""
-    if getattr(args, "coordinator", "") or getattr(
-            args, "num_processes", 1) > 1 or args.mesh_data > 0:
+    """Raise NotImplementedError for a flag the port cannot honour yet
+    (the flags of `train`, `test` and `serve`; one absent from a parser
+    counts as unset)."""
+    if (getattr(args, "coordinator", "")
+            or getattr(args, "num_processes", 1) > 1
+            or getattr(args, "local_device_count", 0)
+            or getattr(args, "mesh_data", 0) > 0):
         raise NotImplementedError(
-            "--coordinator / --num-processes > 1 / --mesh-data > 0: "
-            "training and evaluation over several cards are ROADMAP.md "
-            "queue 1, slice 7 (multi-GPU)")
-    if args.backbone == "vit":
+            "--coordinator / --num-processes > 1 / --local-device-count / "
+            "--mesh-data > 0: training, evaluation and serving over several "
+            "cards are ROADMAP.md queue 1, slice 7 (multi-GPU)")
+    if getattr(args, "trace_dir", None):
+        raise NotImplementedError(
+            "--trace-dir: the profiler trace of the serving loop "
+            "(utils/profiling.py) is ROADMAP.md queue 1, slice 9 (tooling)")
+    if getattr(args, "backbone", "") == "vit":
         raise NotImplementedError(
             "--backbone vit: the ViT encoder is ROADMAP.md queue 1, "
             "slice 8 (the rest of the model zoo)")
-    w = args.weights_filename
+    w = getattr(args, "weights_filename", None) or getattr(args, "weights",
+                                                           None)
     if w and osp.isdir(w) and ckpt.latest_epoch(w) is None and any(
             d.isdigit() for d in os.listdir(w)):
         raise NotImplementedError(
-            f"--weights-filename {w}: epoch directories without the "
-            "port's train_state.pt, an Orbax checkpoint of the JAX "
-            "package; reading those is ROADMAP.md queue 1, slice 6c (the "
-            "parity entry point).  The port reads its own checkpoint "
-            "directories and .pth.tar files")
+            f"{w}: epoch directories without the port's train_state.pt, an "
+            "Orbax checkpoint of the JAX package, which the port does not "
+            "read (Orbax's on-disk format needs tensorstore).  Export it "
+            "with the JAX package's training/checkpoints.py::"
+            "save_torch_checkpoint: it writes a .pth.tar that the port "
+            "reads with strict=True")

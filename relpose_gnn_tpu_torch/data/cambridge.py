@@ -9,7 +9,8 @@ datasets/cambridge_landmark.py:18-165):
   * outlier skip when |t| > 10000;
   * translation normalization by the mean/std stats file.
 
-Decoding needs PIL, imported by the functions that decode.
+Frames decode with the port's own PNG decoder and resize
+(`data/image_io.py`).
 """
 
 from __future__ import annotations

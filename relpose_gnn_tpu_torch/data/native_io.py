@@ -2,8 +2,8 @@
 
 The port's own copy of `relpose_gnn_tpu/data/native_io.py`.  The source
 is compiled with `g++` on first use into `_build/libgraphio-<hash>.so`
-(the hash covers the source and the flags, as for the CUDA kernels of
-`ops/_build.py`); nothing is written anywhere else.  It exposes:
+through `ops/_build.py::build_host` (the hash covers the source and the
+flags, as for the CUDA kernels); nothing is written anywhere else.  It exposes:
   * `NativeArray`: one mmap'd .npy record store with a multithreaded
     gather;
   * `NativeConcatDataset`: a multi-store view with the `batch()` contract
@@ -19,53 +19,30 @@ pointer reaches the native code.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import json
 import os
 import os.path as osp
-import subprocess
-import tempfile
 import threading
-from pathlib import Path
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parents[1]
-SRC_PATH = _PKG / "csrc" / "graphio.cc"
-BUILD_DIR = _PKG / "_build"
-GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+from relpose_gnn_tpu_torch.ops import _build
+
+_LIBS = ("-lpthread",)
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
-def library_path() -> Path:
+def library_path():
     """Where `csrc/graphio.cc` builds to, keyed by source and flags."""
-    digest = hashlib.sha256(SRC_PATH.read_bytes()
-                            + "\0".join(GXX_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libgraphio-{digest[:16]}.so"
+    return _build.host_library_path("graphio", _LIBS)
 
 
-def build() -> Path:
+def build():
     """Compile the runtime unless it is built; raises RuntimeError with
     the command line and the compiler's output if g++ fails."""
-    out = library_path()
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = ["g++", *GXX_FLAGS, "-o", tmp, str(SRC_PATH), "-lpthread"]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed (exit {proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    return _build.build_host("graphio", _LIBS)
 
 
 def load() -> ctypes.CDLL:

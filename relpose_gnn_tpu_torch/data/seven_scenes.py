@@ -13,8 +13,10 @@ datasets/seven_scenes.py:17-174):
     pose tables + `<vo_lib>_vo_stats.pkl` Sim(3) alignment, with `gt_idx`
     mapping served frames back to ground-truth rows.
 
-Decoding needs PIL, imported by the functions that decode
-(`data/transforms.py::pil_image`); parsing splits and poses does not.
+Colour frames decode with the port's own PNG decoder and resize
+(`data/image_io.py`).  Depth frames (16-bit gray, modes 1 and 2) decode
+with PIL, imported by `load_depth`: where PIL is missing it raises an
+ImportError naming it.
 The bundled per-scene statistics are the port's own copy under
 `data/stats/`.
 """
@@ -166,13 +168,20 @@ class SevenScenes:
 
     def load_depth(self, index: int) -> np.ndarray | None:
         """Depth frame in metres [H, W] (mm, 65535 = invalid -> 0),
-        resized like the RGB."""
-        Image = T.pil_image()
+        resized like the RGB (PIL's bilinear resample of the 16-bit
+        frame)."""
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ImportError(
+                "decoding 16-bit depth frames needs PIL (Pillow), which is "
+                "not installed") from e
         try:
             img = Image.open(self.d_imgs[index])
         except (IOError, OSError):
             return None
-        img = T.resize_short_side(img, self.image_size)
+        img = img.resize(T.short_side_size(img.size[1], img.size[0],
+                                           self.image_size), Image.BILINEAR)
         d = np.asarray(img, np.float32)
         d[np.asarray(img) == 65535] = 0.0
         return d / 1000.0

@@ -6,61 +6,52 @@ transform stacks:
   * Cambridge: Resize(256) + ColorJitter(0.5, 0.5, 0.5, 0.2) +
     Normalize(0.5, 0.25)
 
-Resize(256) = shortest side to 256 with aspect preserved, PIL bilinear
-(antialiased), torchvision's PIL backend.  Frames stay uint8 / float HWC
-numpy arrays: the packed stores hold uint8 and normalise on the device.
+Resize(256) = shortest side to 256 with aspect preserved, PIL's bilinear
+(antialiased) resample as torchvision's PIL backend runs it, here through
+the port's own copy (`data/image_io.py::resize_bilinear`, bit for bit).
+Frames stay uint8 / float HWC numpy arrays: the packed stores hold uint8
+and normalise on the device.
 
-PIL is imported by the functions that decode or resize, never when this
-module is imported: a machine without PIL can import every loader, and a
-call that needs PIL raises an ImportError naming it.
+Colour frames decode with the port's PNG decoder (`data/image_io.py`), so
+nothing here needs PIL.
 """
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING
-
 import numpy as np
 
-if TYPE_CHECKING:
-    from PIL import Image
+from relpose_gnn_tpu_torch.data import image_io
 
 
-def pil_image():
-    """The `PIL.Image` module; an ImportError naming PIL where it is not
-    installed (nothing falls back to another decoder or resize)."""
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(
-            "decoding and resizing frames needs PIL (Pillow), which is not "
-            "installed") from e
-    return Image
-
-
-def resize_short_side(img: Image.Image, size: int = 256) -> Image.Image:
-    """torchvision `Resize(int)` semantics: shorter side -> `size`."""
-    Image = pil_image()
-    w, h = img.size
+def short_side_size(h: int, w: int, size: int) -> tuple[int, int]:
+    """(new width, new height) of torchvision's `Resize(int)`: the
+    shorter side -> `size`, the other side rounded."""
     if h <= w:
-        nh, nw = size, max(1, round(size * w / h))
-    else:
-        nw, nh = size, max(1, round(size * h / w))
-    return img.resize((nw, nh), Image.BILINEAR)
+        return max(1, round(size * w / h)), size
+    return size, max(1, round(size * h / w))
 
 
-def load_rgb(path: str) -> Image.Image | None:
-    """RGB decode; an unreadable file gives None (callers skip forward)."""
-    Image = pil_image()
+def resize_short_side(img: np.ndarray, size: int = 256) -> np.ndarray:
+    """torchvision `Resize(int)` semantics on a uint8 [H, W, 3] frame (or
+    anything `np.asarray` makes one of)."""
+    img = np.asarray(img)
+    return image_io.resize_bilinear(img, short_side_size(*img.shape[:2],
+                                                         size))
+
+
+def load_rgb(path: str) -> np.ndarray | None:
+    """RGB decode to uint8 [H, W, 3]; a file that cannot be read, or that
+    PIL fails on with an IOError (`image_io.CorruptPNG`), gives None:
+    callers skip forward, as they did on PIL's IOError."""
     try:
-        img = Image.open(path)
-        return img.convert("RGB")
-    except (IOError, OSError):
+        return image_io.decode_png(path)
+    except image_io.CorruptPNG:
         return None
 
 
-def to_float_chw_free(img: Image.Image) -> np.ndarray:
-    """PIL -> float32 HWC in [0, 1] (ToTensor without the CHW transpose:
-    the port keeps NHWC at its public functions)."""
+def to_float_chw_free(img: np.ndarray) -> np.ndarray:
+    """uint8 HWC -> float32 HWC in [0, 1] (ToTensor without the CHW
+    transpose: the port keeps NHWC at its public functions)."""
     return np.asarray(img, np.float32) / 255.0
 
 

@@ -10,16 +10,16 @@ from __future__ import annotations
 
 import numpy as np
 
-from relpose_gnn_tpu_torch.data.transforms import pil_image
+from relpose_gnn_tpu_torch.data.image_io import resize_bilinear
 
 
 def crop_by_intrinsic(img: np.ndarray, cur_k: np.ndarray,
                       new_k: np.ndarray) -> np.ndarray:
-    """FOV-preserving crop: rescale by the focal ratio (PIL bilinear on
-    the uint8-quantised image), then center-crop to the new principal-point
-    extent.  Only crops to a smaller FOV; float input in [0, 1] comes back
-    as float32 in [0, 1], uint8 as uint8."""
-    Image = pil_image()
+    """FOV-preserving crop: rescale by the focal ratio (PIL's bilinear
+    resample of the uint8-quantised image, `data/image_io.py::
+    resize_bilinear`), then center-crop to the new principal-point extent.
+    Only crops to a smaller FOV; float input in [0, 1] comes back as
+    float32 in [0, 1], uint8 as uint8."""
     cur_fov_x = 2 * np.arctan(cur_k[0, 2] / cur_k[0, 0])
     new_fov_x = 2 * np.arctan(new_k[0, 2] / new_k[0, 0])
     cur_fov_y = 2 * np.arctan(cur_k[1, 2] / cur_k[1, 1])
@@ -30,11 +30,9 @@ def crop_by_intrinsic(img: np.ndarray, cur_k: np.ndarray,
     ratio = new_k[0, 0] / cur_k[0, 0]
     h, w = img.shape[:2]
     nw, nh = int(ratio * w), int(ratio * h)
-    if img.dtype != np.uint8:
-        pil = Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
-    else:
-        pil = Image.fromarray(img)
-    resized = np.asarray(pil.resize((nw, nh), Image.BILINEAR))
+    u8 = (img if img.dtype == np.uint8
+          else (np.clip(img, 0, 1) * 255).astype(np.uint8))
+    resized = resize_bilinear(u8, (nw, nh))
     if img.dtype != np.uint8:
         resized = resized.astype(np.float32) / 255.0
 

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from relpose_gnn_tpu_torch import resolve_device
-from relpose_gnn_tpu_torch.data.transforms import pil_image
+from relpose_gnn_tpu_torch.data.image_io import resize_bilinear
 from relpose_gnn_tpu_torch.models.netvlad import NetVLADEncoder
 from relpose_gnn_tpu_torch.models.posenet import init_weights
 from relpose_gnn_tpu_torch.ops.camera import crop_by_intrinsic
@@ -39,15 +39,27 @@ def netvlad_preprocess_7scenes(img_01: np.ndarray,
     """Reference NetVLAD input geometry for a 7-Scenes frame: a raw
     640x480 frame is first cropped from the RGB to the depth intrinsics'
     field of view (`ops/camera.py::crop_by_intrinsic`); every frame is then
-    resized to 192x256 (PIL bilinear on the uint8-quantised image) and
-    ImageNet-normalized."""
-    Image = pil_image()
+    resized to 192x256 (PIL's bilinear resample of the uint8-quantised
+    image, `data/image_io.py::resize_bilinear`) and ImageNet-normalized."""
     if img_01.shape[:2] == (480, 640):
         img_01 = crop_by_intrinsic(img_01, K_7SCENES_RGB, K_7SCENES_DEPTH)
-    pil = Image.fromarray((np.clip(img_01, 0, 1) * 255).astype(np.uint8))
-    out = np.asarray(pil.resize((out_hw[1], out_hw[0]), Image.BILINEAR),
-                     np.float32) / 255.0
-    return imagenet_normalize(out)
+    u8 = (np.clip(img_01, 0, 1) * 255).astype(np.uint8)
+    out = resize_bilinear(u8, (out_hw[1], out_hw[0])).astype(np.float32)
+    return imagenet_normalize(out / 255.0)
+
+
+def seeded_encoder(num_clusters: int = 64, encoder_dim: int = 512,
+                   dtype: torch.dtype | None = torch.bfloat16,
+                   seed: int = 0) -> NetVLADEncoder:
+    """A NetVLADEncoder with weights drawn from `seed` (on the CPU), for
+    use without a released checkpoint (smoke runs)."""
+    encoder = NetVLADEncoder(num_clusters=num_clusters,
+                             encoder_dim=encoder_dim, dtype=dtype)
+    gen = torch.Generator().manual_seed(seed)
+    init_weights(encoder, gen)
+    with torch.no_grad():
+        encoder.pool.centroids.uniform_(0, 1, generator=gen)
+    return encoder
 
 
 class NetVLADIndex:
@@ -62,12 +74,7 @@ class NetVLADIndex:
                  device: torch.device | str | None = None):
         self.device = resolve_device(device)
         if encoder is None:
-            encoder = NetVLADEncoder(num_clusters=num_clusters,
-                                     encoder_dim=encoder_dim, dtype=dtype)
-            gen = torch.Generator().manual_seed(seed)
-            init_weights(encoder, gen)
-            with torch.no_grad():
-                encoder.pool.centroids.uniform_(0, 1, generator=gen)
+            encoder = seeded_encoder(num_clusters, encoder_dim, dtype, seed)
         self.encoder = encoder.to(self.device).eval()
         self.batch_size = batch_size
         self.descriptors: torch.Tensor | None = None  # [M, K * dim]

@@ -95,7 +95,10 @@ def restore_checkpoint(logdir: str, state: TrainState,
     return state
 
 
-def _model_state_dict(path: str) -> dict:
+def read_state_dict(path: str) -> dict:
+    """The state dict of a reference checkpoint file (`.pth.tar`, the
+    released `netvlad_vgg16.tar`): its `model_state_dict` or `state_dict`
+    entry, else the file's whole dict; tensors only (`weights_only`)."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     for key in ("model_state_dict", "state_dict"):
         if isinstance(obj, dict) and key in obj:
@@ -107,7 +110,7 @@ def load_torch_weights(state: TrainState, pth_path: str) -> TrainState:
     """Warm-start the model (weights and BN statistics) from a reference
     checkpoint, `strict=True`: a checkpoint of another model config
     raises.  The optimizer and criterion stay as they are."""
-    state.model.load_state_dict(_model_state_dict(pth_path), strict=True)
+    state.model.load_state_dict(read_state_dict(pth_path), strict=True)
     return state
 
 

@@ -16,7 +16,7 @@ training feed, as in the JAX package:
     NativeConcatDataset`) where it builds, else the numpy memmaps, through
     `data_iterator` + `device_prefetch`; the log says which.
 `run_eval(serving_data_path=...)` reads the scene's raw training frames
-with the 7-Scenes / Cambridge loaders (PIL decode).  `mesh_data > 0`
+with the 7-Scenes / Cambridge loaders (the port's PNG decode).  `mesh_data > 0`
 raises NotImplementedError naming its ROADMAP.md queue (multi-GPU); the
 JAX package's compile cache is dropped (a TPU workaround).
 """

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from relpose_gnn_tpu_torch.cli import refuse_unported
 from relpose_gnn_tpu_torch.cli import test as cli_test
 from relpose_gnn_tpu_torch.cli import train as cli_train
 from relpose_gnn_tpu_torch.data.packed import PackedGraphWriter
@@ -194,7 +195,9 @@ def _orbax_dir(tmp_path):
     (["--num-processes", "2"], "slice 7"),
     (["--mesh-data", "2"], "slice 7"),
     (["--backbone", "vit"], "slice 8"),
-    (["--weights-filename", "ORBAX"], "slice 6c"),
+    # the id is the case's name from when the refusal named a slice
+    pytest.param(["--weights-filename", "ORBAX"], "save_torch_checkpoint",
+                 id="extra4-slice 6c"),
 ])
 def test_train_entry_refuses_unported_flags(stores, tmp_path, extra, slice_):
     extra = [_orbax_dir(tmp_path) if a == "ORBAX" else a for a in extra]
@@ -209,7 +212,8 @@ def test_train_entry_refuses_unported_flags(stores, tmp_path, extra, slice_):
 @pytest.mark.parametrize("extra,slice_", [
     (["--mesh-data", "2"], "slice 7"),
     (["--backbone", "vit"], "slice 8"),
-    (["--weights-filename", "ORBAX"], "slice 6c"),
+    pytest.param(["--weights-filename", "ORBAX"], "save_torch_checkpoint",
+                 id="extra2-slice 6c"),
 ])
 def test_test_entry_refuses_unported_flags(stores, tmp_path, extra, slice_):
     extra = [_orbax_dir(tmp_path) if a == "ORBAX" else a for a in extra]
@@ -218,6 +222,19 @@ def test_test_entry_refuses_unported_flags(stores, tmp_path, extra, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         cli_test.main(argv)
     assert not (tmp_path / "out").exists()
+
+
+def test_orbax_refusal_names_the_pth_tar_exporter(tmp_path):
+    """An Orbax directory of the JAX package is refused with the way
+    across: the JAX exporter writes a .pth.tar the port loads strictly."""
+    args = cli_test.parse_args(["--test-data-dir", str(tmp_path),
+                                "--weights-filename", _orbax_dir(tmp_path)])
+    with pytest.raises(NotImplementedError) as err:
+        refuse_unported(args)
+    msg = str(err.value)
+    for part in ("Orbax", "tensorstore", "training/checkpoints.py::"
+                 "save_torch_checkpoint", ".pth.tar", "strict=True"):
+        assert part in msg, part
 
 
 def test_entries_need_a_card_unless_asked(stores, tmp_path):

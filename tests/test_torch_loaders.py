@@ -214,8 +214,20 @@ class _Fixed:
         return np.arange(n)
 
 
-def test_pil_is_named_where_it_is_missing(monkeypatch):
+def test_pil_is_named_where_it_is_missing(monkeypatch, tmp_path):
+    """Without PIL the colour path decodes and resizes with the port's own
+    library; only the 16-bit depth frames need PIL and name it."""
     import builtins
+    import types
+
+    from relpose_gnn_tpu_torch.data import image_io
+
+    frame = (np.random.default_rng(3).random((48, 64, 3)) * 255).astype(
+        np.uint8)
+    path = str(tmp_path / "f.png")
+    image_io.encode_png(path, frame)
+    want = (T.load_and_preprocess(path, 20),
+            netvlad_index.netvlad_preprocess_7scenes(frame / 255.0))
     real_import = builtins.__import__
 
     def no_pil(name, *a, **k):
@@ -224,10 +236,13 @@ def test_pil_is_named_where_it_is_missing(monkeypatch):
         return real_import(name, *a, **k)
 
     monkeypatch.setattr(builtins, "__import__", no_pil)
+    np.testing.assert_array_equal(T.load_rgb(path), frame)
+    np.testing.assert_array_equal(T.load_and_preprocess(path, 20), want[0])
+    np.testing.assert_array_equal(
+        netvlad_index.netvlad_preprocess_7scenes(frame / 255.0), want[1])
+    depth = types.SimpleNamespace(d_imgs=[path], image_size=20)
     with pytest.raises(ImportError, match="PIL"):
-        T.load_rgb("x.png")
-    with pytest.raises(ImportError, match="PIL"):
-        netvlad_index.netvlad_preprocess_7scenes(np.zeros((4, 4, 3)))
+        seven_scenes.SevenScenes.load_depth(depth, 0)
 
 
 # ---------------------------------------------------------------------------

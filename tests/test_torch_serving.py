@@ -218,9 +218,11 @@ def test_port_and_chip_smoke_never_import_jax():
     """After importing every module of the port and `chip_smoke`, no
     module of jax, flax, optax, orbax, the JAX package or the repo's
     top-level `benchmarks` package is loaded (the `_torch` package's own name
-    starts like the JAX package's and is excepted), and no module of PIL:
-    the loaders import it only where they decode, so that the card's
-    machine, which has none, imports them."""
+    starts like the JAX package's and is excepted), and no module of PIL,
+    also after a colour frame is encoded, decoded and resized through the
+    loaders' path (`load_and_preprocess`, `crop_by_intrinsic`,
+    `netvlad_preprocess_7scenes`): the card's machine has no PIL, and
+    only the 16-bit depth frames need it."""
     proc = _run(["-c", (
         "import importlib, pkgutil, sys\n"
         "import relpose_gnn_tpu_torch as pkg\n"
@@ -230,6 +232,20 @@ def test_port_and_chip_smoke_never_import_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
+        "import os, tempfile\n"
+        "import numpy as np\n"
+        "from relpose_gnn_tpu_torch.data import image_io, transforms\n"
+        "from relpose_gnn_tpu_torch.retrieval import netvlad_index as nv\n"
+        "frame = np.random.default_rng(0).integers(0, 256, (480, 640, 3),\n"
+        "                                          dtype=np.uint8)\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    path = os.path.join(d, 'f.png')\n"
+        "    image_io.encode_png(path, frame)\n"
+        "    assert (image_io.decode_png(path) == frame).all()\n"
+        "    x = transforms.load_and_preprocess(path, 256)\n"
+        "assert x.shape == (256, 341, 3)\n"
+        "assert nv.netvlad_preprocess_7scenes(frame / 255.0).shape == (\n"
+        "    192, 256, 3)\n"
         "def foreign(m):\n"
         "    top = m.split('.')[0]\n"
         "    return top in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
@@ -253,7 +269,10 @@ def test_port_and_chip_smoke_never_import_jax():
         "             'data.graph_builder', 'data.device_cache',\n"
         "             'data.native_io', 'benchmarks.bench_feed',\n"
         "             'data.synthetic', 'benchmarks.train_smoke', 'cli',\n"
-        "             'cli.train', 'cli.test'):\n"
+        "             'cli.train', 'cli.test', 'data.image_io',\n"
+        "             'data.synthetic_scenes', 'data.pyg_import',\n"
+        "             'cli.build_graphs', 'cli.serve', 'cli.parity',\n"
+        "             'cli.compute_pose_stats'):\n"
         "    assert 'relpose_gnn_tpu_torch.' + tail in sys.modules, tail\n"
         "print('clean')\n")])
     assert proc.returncode == 0, proc.stderr
