@@ -158,7 +158,32 @@ is no CPU fallback: without CUDA it exits 1 at once.
             chess's test store, equal to `cli.test` bit for bit
             (deterministic algorithms on); each step's seconds, attention
             launches (2 a train step, eval batch and query batch) and
-            decode and resize rates
+            decode and resize rates; loader mode 2 (colour and 16-bit
+            depth, no PIL on the card's host) over chess's train split
+            with a depth PNG written beside every frame
+  multi     several GPUs (parallel/): one NCCL rank in this process
+            (FileStore, world 1) runs R3 bf16 `run_training` (batch 8, 8
+            steps + an eval) under DistributedDataParallel over the 1x1
+            mesh, equal bit for bit to the run without a mesh (every
+            step's loss, the final train state, the medians; the step's
+            ms for both and an NCCL all-reduce of one R3 gradient),
+            `evaluate_scene_cached` with the mesh equal to without, and
+            the `netvlad` service of phase `service`'s deployment
+            (capacity 2048, 1216 live frames, 128 uint8 queries) under
+            `replicate_over` and `shard_database` equal to no mesh,
+            deterministic and stochastic; then two gloo ranks spawned on
+            the same card (NCCL refuses two ranks on one device; gloo
+            stages CUDA tensors through the host, so their times are no
+            speed of the system): DDP `run_training` of R3 in float32
+            (TF32 off), global batch 8 = 4 + 4, 4 steps + an eval, against
+            one process on the global batch (GLOO_LOSS_RTOL,
+            GLOO_LATER_RTOL), 2 BatchNorm all-reduces a layer a step; one
+            tensor-parallel train step (data=1 x model=2) against the
+            whole model (TP_GRAD_REL_TOL); the sharded database against
+            the replicated service at the same deployment, deterministic
+            and stochastic with 256 candidates: neighbours and anchors
+            equal, each rank holding half the table bytes; attention
+            launches per rank under `multi ...` keys
   time      CUDA events, median of 20 iterations after warm-up, the forms
             compared in turns within this one run: the attention core
             (kernel, its earlier form `restructured_core/v1`, `exp2_core`,
@@ -260,6 +285,8 @@ from relpose_gnn_tpu_torch.retrieval.netvlad_index import (IMAGENET_MEAN,
                                                            IMAGENET_STD,
                                                            NetVLADIndex)
 from relpose_gnn_tpu_torch.retrieval.subsample import fold_in
+from relpose_gnn_tpu_torch.parallel.mesh import create_mesh
+from relpose_gnn_tpu_torch.training import experiment as experiment_mod
 from relpose_gnn_tpu_torch.training.checkpoints import save_torch_checkpoint
 from relpose_gnn_tpu_torch.training.experiment import (ExperimentConfig,
                                                        build_model,
@@ -1499,13 +1526,15 @@ def run_service_benches() -> None:
 TRAIN_GRAPHS, TEST_GRAPHS, TRAIN_BATCH = 64, 16, 8
 
 
-def write_train_stores(root: str, rng: np.random.Generator) -> None:
-    """Synthetic 7-Scenes stores `chess_fc8_sp5_{train,test}` at HxW:
-    graphs of 8 frames drawn from a pool of 96, fully connected, with
-    poses and neighbour indices."""
+def write_train_stores(root: str, rng: np.random.Generator,
+                       train: int = TRAIN_GRAPHS,
+                       test: int = TEST_GRAPHS) -> None:
+    """Synthetic 7-Scenes stores `chess_fc8_sp5_{train,test}` at HxW of
+    `train` / `test` graphs of 8 frames drawn from a pool of 96, fully
+    connected, with poses and neighbour indices."""
     pool = rng.integers(0, 256, size=(96, H, W, 3), dtype=np.uint8)
     pool_poses = rng.normal(size=(96, 6)).astype(np.float32)
-    for split, n in (("train", TRAIN_GRAPHS), ("test", TEST_GRAPHS)):
+    for split, n in (("train", train), ("test", test)):
         writer = PackedGraphWriter(osp.join(root, f"chess_fc8_sp5_{split}"),
                                    n, 8, H, W, mean=MEAN, std=STD)
         for _ in range(n):
@@ -2249,6 +2278,461 @@ def run_entry(dev, root: str, sizes: FeedSizes) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# several GPUs: the mesh, data-parallel training, the sharded database
+# ---------------------------------------------------------------------------
+
+# the two gloo ranks' training against one process on the global batch:
+# the first step's loss comes before any update, and float32 sums split
+# over two ranks and all-reduced differ from one process's by rounding,
+# held to 1e-4 relative.  After an update the runs may part: a weight
+# whose gradient is near zero can move the other way (Adam's update is
+# +-lr), and R3 rebuilds its kNN graph from the features every step, so a
+# near-tie that rounding flips changes the graph.  On the CPU at a tiny
+# width (32 x 40 frames, dims 32) the later losses of 4 steps differed by
+# up to 0.45% between two ranks and one process, and by 0.12% between one
+# process on 4 and on 8 threads: held to 2% relative
+GLOO_LOSS_RTOL = 1e-4
+GLOO_LATER_RTOL = 2e-2
+# one tensor-parallel train step against the whole model, float32: the
+# split products sum in another order, held as the train step's kernel
+# check holds its gradients (max |diff| over the largest entry)
+TP_GRAD_REL_TOL = 1e-3
+GLOO_TIMEOUT = 420
+# what the multi phase runs, always R3 at full width (the serving model of
+# the service phase, `train_config`'s training) on H x W frames with 64
+# NetVLAD clusters, the service at the service phase's deployment
+NCCL_STEPS = 8                      # bf16, batch 8, one rank
+GLOO_STEPS = 4                      # float32, global batch 8 (4 + 4)
+
+
+@contextlib.contextmanager
+def recorded_steps():
+    """Every train step's loss (read on the host) and seconds while
+    `run_training` runs."""
+    losses, seconds = [], []
+    orig = experiment_mod.make_train_step
+
+    def make(tcfg, mesh=None):
+        step = orig(tcfg) if mesh is None else orig(tcfg, mesh)
+
+        def run(state, batch, seed):
+            t0 = time.perf_counter()
+            m = step(state, batch, seed)
+            losses.append(m["loss"].item())
+            seconds.append(time.perf_counter() - t0)
+            return m
+
+        return run
+
+    with mock.patch.object(experiment_mod, "make_train_step", make):
+        yield losses, seconds
+
+
+def step_ms(seconds: list) -> float:
+    """Median step time after the first step, in ms (host clock around a
+    step and the read of its loss)."""
+    return 1e3 * statistics.median(seconds[1:] or seconds)
+
+
+def multi_deployment(dev, sizes: ServiceSizes, hw: tuple) -> dict:
+    """The service phase's deployment: frames, queries, poses, the rows
+    to tombstone and the scene normalisation, from its seeds."""
+    n_all = sizes.build + sizes.add
+    mean_t = torch.tensor(MEAN, device=dev)
+    std_t = torch.tensor(STD, device=dev)
+
+    def frames(n, seed):
+        return _synthetic.synthetic_frames(dev, n, *hw, seed).numpy()
+
+    return {"frames": frames(n_all, SEED + 10),
+            "queries": frames(sizes.queries, SEED + 11),
+            "poses": np.random.default_rng(SEED + 12).normal(
+                size=(n_all, 6)).astype(np.float32),
+            "dead": np.random.default_rng(SEED + 13).choice(
+                n_all, sizes.invalidate, replace=False),
+            "norm": lambda x01: (x01 - mean_t) / std_t}
+
+
+def grown_service(dev, model, netvlad, sizes: ServiceSizes, dep: dict,
+                  place=None, **cfg) -> RelocalizationService:
+    """`netvlad` retrieval at the deployment's capacity: build, then
+    `place(svc)` (replicate_over / shard_database, or nothing), then add
+    and invalidate, so the mutations run in the placed layout."""
+    svc = RelocalizationService(model, netvlad, ServiceConfig(
+        capacity=sizes.capacity, retrieval="netvlad",
+        retrieval_hw=sizes.retrieval_hw, **cfg), device=dev)
+    svc.build(dep["frames"][:sizes.build], dep["poses"][:sizes.build],
+              dep["norm"], batch=sizes.embed_batch)
+    if place is not None:
+        place(svc)
+    svc.add_frames(dep["frames"][sizes.build:], dep["poses"][sizes.build:],
+                   dep["norm"], batch=sizes.embed_batch)
+    svc.invalidate_frames(dep["dead"])
+    return svc
+
+
+def table_bytes(svc: RelocalizationService) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in (svc.db_desc, svc.db_emb))
+
+
+def check_similarity_blocks(dev, sizes: ServiceSizes) -> None:
+    """Why `similarities` multiplies in SIM_BLOCK-row blocks: one GEMM
+    over the whole table and one over each half disagree in their last
+    bits (the library sums another order for another output shape), the
+    blocked form agrees bit for bit; the two forms' times in turns."""
+    from relpose_gnn_tpu_torch.evaluation.service import SIM_BLOCK
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    q = torch.randn(sizes.queries, 64 * 512, device=dev, generator=gen)
+    table = torch.randn(sizes.capacity, 64 * 512, device=dev,
+                        generator=gen)
+    half = sizes.capacity // 2
+    whole = q @ table.T
+    halves = torch.cat([q @ table[:half].T, q @ table[half:].T], 1)
+    gap = (whole - halves).abs().max().item()
+    blocked = similarities(q, table)
+    check(torch.equal(blocked, torch.cat([similarities(q, table[:half]),
+                                          similarities(q, table[half:])],
+                                         1)),
+          "blocked similarities differ between a table and its halves")
+    ms_ = in_turns({"one GEMM": lambda: q @ table.T,
+                    "blocked": lambda: similarities(q, table)}, device=dev)
+    phase("multi", f"similarities [{sizes.queries} x {64 * 512}] x "
+          f"{sizes.capacity} rows fp32: one GEMM over the table and one over "
+          f"each half differ by {gap:.3e} (max |diff|, |values| ~"
+          f"{whole.abs().max().item():.0f}); in {SIM_BLOCK}-row blocks the "
+          f"halves equal the whole bit for bit; one GEMM "
+          f"{ms_['one GEMM']:.4f} ms, blocked {ms_['blocked']:.4f} ms "
+          "(CUDA events, in turns)")
+
+
+def run_multi_nccl(dev, model: RelPoseGNN, netvlad, root: str) -> dict:
+    """One NCCL rank in this process: training, the cached eval and the
+    service over a 1x1 mesh, each against the same run without a mesh.
+    Returns the attention kernel's launches of the mesh runs."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.FileStore(
+        osp.join(root, "nccl_store"), 1), rank=0, world_size=1)
+    launches = {}
+    try:
+        mesh = create_mesh(n_data=1)
+        check(mesh.mesh_dim_names == ("data", "model")
+              and tuple(mesh.mesh.shape) == (1, 1),
+              f"1-rank mesh {mesh}")
+        phase("multi", "NCCL process group, world 1: mesh "
+              f"{dict(zip(mesh.mesh_dim_names, tuple(mesh.mesh.shape)))}")
+        sizes = ServiceSizes()
+        check_similarity_blocks(dev, sizes)
+
+        # training: the same 8 steps with and without the mesh
+        stores = osp.join(root, "nccl_train")
+        steps = NCCL_STEPS
+        write_train_stores(stores, np.random.default_rng(SEED + 20),
+                           steps * TRAIN_BATCH, TRAIN_BATCH)
+        cfg = train_config(stores, max_epoch=1, eval_after_epoch=-1,
+                           ckpt_every=0)
+        runs = {}
+        with deterministic_algorithms():
+            for name, kw in (("without a mesh", {}),
+                             ("mesh data=1", dict(mesh_data=1))):
+                att_core.LAUNCHES = 0
+                with recorded_steps() as (losses, seconds):
+                    out = run_training(dataclasses.replace(
+                        cfg, save_dir=osp.join(stores, name.split()[0]),
+                        **kw), device=dev)
+                torch.cuda.synchronize()
+                runs[name] = (losses, seconds, att_core.LAUNCHES,
+                              _flat_state(out["state"]), out["best"])
+        (l0, s0, n0, f0, b0), (l1, s1, n1, f1, b1) = runs.values()
+        want = 2 * (steps + 1)
+        check(len(l1) == steps and n1 == want and n0 == want,
+              f"{len(l1)} steps, attention launches {n0} / {n1}, "
+              f"expected {want}")
+        check(l0 == l1, f"per-step losses differ: {l0} vs {l1}")
+        differ = sorted(k for k in f0 if not torch.equal(f0[k], f1[k]))
+        check(not differ, f"final train state differs: {differ[:8]}")
+        check(b0 == b1, f"eval medians differ: {b0} vs {b1}")
+        launches["multi nccl run_training"] = n1
+        n_params = sum(p.numel() for p in out["state"].optimizer.params)
+        flat = torch.zeros(n_params, device=dev)
+        ar_ms = median_ms(lambda: dist.all_reduce(flat), device=dev)
+        phase("multi", f"run_training R3 bf16 batch {TRAIN_BATCH}, "
+              f"{steps} steps + an eval, under DistributedDataParallel "
+              f"over the 1-rank mesh against no mesh: the {steps} "
+              f"losses {l1}, the {len(f1)} tensors of the final train state "
+              f"and the eval medians equal bit for bit; step {step_ms(s1):.2f}"
+              f" ms with the mesh, {step_ms(s0):.2f} ms without; NCCL "
+              f"all-reduce of one R3 gradient ({n_params} float32, "
+              f"{4 * n_params / 2 ** 20:.1f} MiB) {ar_ms:.4f} ms; attention "
+              f"kernel launches {n1} (= 2 x ({steps} + 1))")
+
+        # the cached eval with and without the mesh
+        cached = osp.join(root, "nccl_cached")
+        db = write_store(cached, np.random.default_rng(SEED))
+        ds = PackedGraphDataset(cached)
+        outs = {}
+        for name, m in (("plain", None), ("mesh", mesh)):
+            att_core.LAUNCHES = 0
+            outs[name] = serving.evaluate_scene_cached(
+                model, ds, db, batch_size=BATCH, device=dev, mesh=m)
+            outs[name + " launches"] = att_core.LAUNCHES
+        check(np.array_equal(outs["plain"]["pred"], outs["mesh"]["pred"]),
+              "evaluate_scene_cached differs with the 1-rank mesh")
+        n_batches = -(-N_QUERIES // BATCH)
+        check(outs["mesh launches"] == 2 * n_batches,
+              f"{outs['mesh launches']} attention launches")
+        launches["multi nccl evaluate_scene_cached"] = outs["mesh launches"]
+        phase("multi", f"evaluate_scene_cached R3 bf16 over the 1-rank mesh: "
+              f"{N_QUERIES} predictions equal to no mesh, bit for bit; "
+              f"attention launches {outs['mesh launches']}")
+
+        # the service: replicated and sharded over the mesh against none
+        dep = multi_deployment(dev, sizes, (H, W))
+        forms = (("replicate_over", lambda s: s.replicate_over(mesh)),
+                 ("shard_database", lambda s: s.shard_database(mesh)))
+        for det in (True, False):
+            mode = "deterministic" if det else "stochastic"
+            ref = grown_service(dev, model, netvlad, sizes, dep,
+                                deterministic=det).query(
+                dep["queries"], dep["norm"], 7)
+            for name, place in forms:
+                svc = grown_service(dev, model, netvlad, sizes, dep, place,
+                                    deterministic=det)
+                att_core.LAUNCHES = 0
+                got = svc.query(dep["queries"], dep["norm"], 7)
+                torch.cuda.synchronize()
+                check(same_result(got, ref), f"{name} ({mode}) differs "
+                      "from the service without a mesh")
+                key = f"multi nccl service {name}"
+                launches[key] = launches.get(key, 0) + att_core.LAUNCHES
+            phase("multi", f"service netvlad {mode}, capacity "
+                  f"{sizes.capacity}, {sizes.build + sizes.add - sizes.invalidate}"
+                  f" live frames, {sizes.queries} uint8 queries: "
+                  "replicate_over and shard_database over the 1-rank mesh "
+                  "answer bit for bit as without a mesh (poses, neighbours, "
+                  "anchors)")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def _gloo_rank(rank: int, store: str, root: str, out) -> None:
+    """One of two gloo ranks sharing card 0, started by the port's
+    `initialize` (gloo asked for by name, meeting through a FileStore):
+    DDP training in float32 and the sharded database against a
+    replicated one."""
+    import traceback
+    import torch.distributed as dist
+    from relpose_gnn_tpu_torch.models import resnet
+    from relpose_gnn_tpu_torch.parallel.multihost import initialize
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        initialize(None, 2, rank, backend="gloo",
+                   store=dist.FileStore(store, 2))
+        dev = torch.device("cuda", torch.cuda.current_device())
+        check(dev.index == 0, f"gloo rank {rank} on {dev}")
+        sync = torch.cuda.synchronize
+        res = {}
+        try:
+            mesh = create_mesh(n_data=2)
+            att_core.LAUNCHES = 0
+            resnet.COUNTS["bn_all_reduce"] = 0
+            t0 = time.perf_counter()
+            with recorded_steps() as (losses, seconds):
+                trained = run_training(
+                    gloo_train_config(root, mesh_data=2), device=dev)
+            sync()
+            res["train"] = dict(
+                losses=losses, ms=step_ms(seconds),
+                wall=time.perf_counter() - t0, launches=att_core.LAUNCHES,
+                bn=resnet.COUNTS["bn_all_reduce"],
+                bn_layers=sum(isinstance(m, torch.nn.BatchNorm2d)
+                              for m in trained["state"].model.modules()))
+            del trained
+            res["tp"] = tp_step(dev, root, create_mesh(n_data=1,
+                                                       n_model=2))
+
+            model = _synthetic.pose_model(dev, "R3", torch.bfloat16, SEED)
+            netvlad = _synthetic.netvlad_encoder(dev, 64, torch.bfloat16,
+                                                 SEED + 1)
+            sizes = ServiceSizes()
+            dep = multi_deployment(dev, sizes, (H, W))
+            for det in (True, False):
+                ref = grown_service(dev, model, netvlad, sizes, dep,
+                                    deterministic=det)
+                want = ref.query(dep["queries"], dep["norm"], 7)
+                svc = grown_service(dev, model, netvlad, sizes, dep,
+                                    lambda s: s.shard_database(mesh),
+                                    deterministic=det)
+                att_core.LAUNCHES = 0
+                t0 = time.perf_counter()
+                got = svc.query(dep["queries"], dep["norm"], 7)
+                sync()
+                res["det" if det else "stoch"] = dict(
+                    neighbors=torch.equal(got["neighbors"],
+                                          want["neighbors"]),
+                    anchors=torch.equal(got["anchor"], want["anchor"]),
+                    pose=(got["pose"] - want["pose"]).abs().max().item(),
+                    bytes=table_bytes(svc), whole=table_bytes(ref),
+                    launches=att_core.LAUNCHES,
+                    ms=1e3 * (time.perf_counter() - t0))
+                del ref, svc
+        finally:
+            dist.destroy_process_group()
+        out.put((rank, "ok", res))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        out.put((rank, "error", traceback.format_exc()))
+
+
+def tp_step(dev, root: str, mesh=None) -> dict:
+    """One float32 train-mode forward, loss and backward of R3 (seeded
+    weights) on a seeded batch of 4 graphs, with the GNN MLPs and
+    proj_edge split over the model axis of `mesh` where one is given:
+    the loss, the relative-pose head's weight gradient (whole on every
+    rank) and the attention kernel's launches."""
+    from relpose_gnn_tpu_torch.data import synthetic
+    from relpose_gnn_tpu_torch.parallel.sharding import TensorParallel
+    state = create_train_state(build_model(gloo_train_config(root),
+                                           dev), TrainerConfig())
+    tp = None if mesh is None else TensorParallel(state.model, mesh)
+    if tp is not None:
+        tp.apply(state)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             synthetic.synthetic_batch(np.random.default_rng(SEED + 40), 4,
+                                       8, H, W).items()}
+    att_core.LAUNCHES = 0
+    total, m = loss_fn(state, batch, torch.Generator(device=dev).manual_seed(
+        SEED), state.optimizer.cfg)
+    total.backward()
+    return {"loss": m["loss"].item(), "launches": att_core.LAUNCHES,
+            "head": state.model.fc_xyz_R.weight.grad.cpu(),
+            "split": 0 if tp is None else len(tp.dims)}
+
+
+def gloo_train_config(root: str, **kw) -> ExperimentConfig:
+    """The two ranks' training: R3 float32, global batch 8, one epoch
+    over the stores at `root`, an eval."""
+    return train_config(root, dtype="float32", max_epoch=1,
+                        eval_after_epoch=-1, ckpt_every=0,
+                        save_dir=osp.join(root, "out" if kw else "one"),
+                        **kw)
+
+
+def run_multi_gloo(dev, root: str) -> dict:
+    """Two gloo ranks spawned on the one card, against one process."""
+    import torch.multiprocessing as mp
+    steps = GLOO_STEPS
+    stores = osp.join(root, "gloo_train")
+    write_train_stores(stores, np.random.default_rng(SEED + 20),
+                           steps * TRAIN_BATCH, TRAIN_BATCH)
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, osp.join(
+        root, "gloo_store"), stores, out)) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        # one process on the global batch, while the ranks start
+        with recorded_steps() as (want, seconds):
+            run_training(gloo_train_config(stores), device=dev)
+        tp_want = tp_step(dev, stores)
+        results = {}
+        for _ in procs:
+            rank, status, value = out.get(timeout=GLOO_TIMEOUT)
+            check(status == "ok", f"gloo rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    wall = time.perf_counter() - t0
+    launches = {}
+    for rank in (0, 1):
+        tr = results[rank]["train"]
+        got = tr["losses"]
+        check(len(got) == len(want) == steps,
+              f"rank {rank}: {len(got)} steps, one process {len(want)}")
+        check(abs(got[0] - want[0]) <= GLOO_LOSS_RTOL * abs(want[0]),
+              f"rank {rank}: first loss {got[0]} vs one process {want[0]}")
+        for k in range(1, steps):
+            check(abs(got[k] - want[k]) <= GLOO_LATER_RTOL * abs(want[k]),
+                  f"rank {rank}: loss {k} {got[k]} vs one process "
+                  f"{want[k]}")
+        check(tr["bn"] == 2 * tr["bn_layers"] * steps, f"rank {rank}: "
+              f"{tr['bn']} BatchNorm all-reduces, expected 2 x "
+              f"{tr['bn_layers']} layers x {steps} steps")
+        check(tr["launches"] == 2 * (steps + 1),
+              f"rank {rank}: {tr['launches']} attention launches")
+        launches[f"multi gloo rank {rank} run_training"] = tr["launches"]
+        tp = results[rank]["tp"]
+        gap = float((tp["head"] - tp_want["head"]).abs().max()
+                    / tp_want["head"].abs().max())
+        check(abs(tp["loss"] - tp_want["loss"]) <= GLOO_LOSS_RTOL * abs(
+            tp_want["loss"]) and gap <= TP_GRAD_REL_TOL,
+            f"rank {rank}: tensor-parallel loss {tp['loss']} vs whole "
+            f"{tp_want['loss']}, head gradient {gap:.3e} off")
+        check(tp["launches"] == 2, f"rank {rank}: {tp['launches']} "
+              "attention launches in the tensor-parallel step")
+        launches[f"multi gloo rank {rank} tensor-parallel step"] = \
+            tp["launches"]
+        for mode in ("det", "stoch"):
+            r = results[rank][mode]
+            check(r["neighbors"] and r["anchors"],
+                  f"rank {rank} {mode}: sharded neighbours / anchors differ "
+                  "from the replicated service")
+            check(r["pose"] <= 1e-3 and 2 * r["bytes"] == r["whole"],
+                  f"rank {rank} {mode}: pose diff {r['pose']}, table bytes "
+                  f"{r['bytes']} of {r['whole']}")
+            check(r["launches"] == 2, f"rank {rank} {mode}: "
+                  f"{r['launches']} attention launches")
+            key = f"multi gloo rank {rank} sharded service"
+            launches[key] = launches.get(key, 0) + r["launches"]
+    r0, r1 = results[0], results[1]
+    rel_gap = max(abs(g - w) / abs(w) for r in (r0, r1)
+                  for g, w in zip(r["train"]["losses"], want))
+    phase("multi", f"two gloo ranks on card 0 (spawned; gloo stages CUDA "
+          f"tensors through the host, so these times are not a speed of "
+          f"the system), DDP run_training R3 float32 (TF32 off), global "
+          f"batch {TRAIN_BATCH} (4 + 4), {steps} steps + an eval: "
+          f"losses {r0['train']['losses']} / {r1['train']['losses']} "
+          f"against one process on the global batch {want} (first within "
+          f"{GLOO_LOSS_RTOL}, then {GLOO_LATER_RTOL} relative; largest "
+          f"relative gap {rel_gap:.2e}); BatchNorm "
+          f"all-reduces {r0['train']['bn']} a rank (= 2 x "
+          f"{r0['train']['bn_layers']} layers x {steps} steps); attention "
+          f"launches {r0['train']['launches']} / "
+          f"{r1['train']['launches']} (= 2 x ({steps} + 1) a rank); "
+          f"step {r0['train']['ms']:.1f} / {r1['train']['ms']:.1f} ms, one "
+          f"process {step_ms(seconds):.1f} ms; {wall:.1f} s in all")
+    phase("multi", f"tensor parallelism over the two gloo ranks (mesh "
+          f"data=1 x model=2, {r0['tp']['split']} parameters split: "
+          f"proj_edge and the GNN MLPs), one R3 float32 train step on 4 "
+          f"graphs: loss {r0['tp']['loss']} / {r1['tp']['loss']} against "
+          f"the whole model's {tp_want['loss']} (within {GLOO_LOSS_RTOL} "
+          f"relative), the relative-pose head's gradient within "
+          f"{TP_GRAD_REL_TOL} of its largest entry; attention launches "
+          f"{r0['tp']['launches']} / {r1['tp']['launches']}")
+    for mode, name in (("det", "deterministic"),
+                       ("stoch", "stochastic, 256 candidates")):
+        a, b = r0[mode], r1[mode]
+        sz = ServiceSizes()
+        phase("multi", f"sharded database over the two gloo ranks, netvlad "
+              f"{name}, capacity {sz.capacity}, "
+              f"{sz.build + sz.add - sz.invalidate} live frames, "
+              f"{sz.queries} uint8 queries "
+              f"(not a speed of the system: {a['ms']:.1f} / "
+              f"{b['ms']:.1f} ms): neighbours and anchors equal to the "
+              f"replicated service's on both ranks, poses within "
+              f"{max(a['pose'], b['pose']):.3e}; table bytes a rank "
+              f"{a['bytes']} / {b['bytes']} (replicated {a['whole']})")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the raw-frame path: PNG files on disk through the entry points
 # ---------------------------------------------------------------------------
 
@@ -2371,6 +2855,59 @@ def generate_raw(dev, root: str, sizes: RawSizes) -> tuple:
     return raw, stats, written
 
 
+def check_depth_frames(raw: str, scene: str, sizes: RawSizes) -> None:
+    """Loader mode 2 (colour and depth) on the card's host, which has no
+    PIL: a 16-bit depth PNG (mm, 65535 = invalid in a patch) written
+    beside every train frame of `scene`, each decoded back equal to the
+    array written; `SevenScenes(mode=2)` gives every frame's colour and
+    depth at 256x341, the depth in metres, 0 inside each invalid patch.
+    PIL's pixels bit for bit are held on the CPU
+    (tests/test_torch_image_io.py)."""
+    from relpose_gnn_tpu_torch.data.seven_scenes import SevenScenes
+    rng = np.random.default_rng(SEED + 30)
+    y, x = np.mgrid[0:sizes.height, 0:sizes.width]
+    rows = sizes.height // 4
+    t0 = time.perf_counter()
+    ds = SevenScenes(scene, raw, train=True, image_size=H, mode=2)
+    written = []
+    for path in ds.d_imgs:
+        d = (500 + 3 * x + 2 * y + rng.integers(0, 50, x.shape)).astype(
+            np.uint16)
+        top = int(rng.integers(0, sizes.height - rows))
+        d[top:top + rows, 100:300] = 65535
+        image_io.encode_png(path, d)
+        check(np.array_equal(image_io.decode_gray_png(path), d),
+              f"{path}: 16-bit depth decoded differs from the array written")
+        written.append(top)
+    t_write = time.perf_counter() - t0
+    image_io.reset_counts()
+    t0 = time.perf_counter()
+    for i, top in enumerate(written):
+        (colour, depth), _, _ = ds[i]
+        check(colour.shape == (H, W, 3) and depth.shape == (H, W)
+              and depth.dtype == np.float32, f"mode 2 item {i}: shapes "
+              f"{colour.shape} {depth.shape} {depth.dtype}")
+        # the patch's interior at the loader's scale (8 rows and columns
+        # in from its edges) keeps 65535, which reads 0
+        r0 = int(np.ceil(top * H / sizes.height)) + 8
+        r1 = int((top + rows) * H / sizes.height) - 8
+        c0, c1 = int(np.ceil(100 * W / sizes.width)) + 8, int(
+            300 * W / sizes.width) - 8
+        check(bool((depth[r0:r1, c0:c1] == 0).all())
+              and bool((depth[:, c1 + 16:] > 0.4).all())
+              and float(depth.max()) < 65.535,
+              f"mode 2 item {i}: depth range {depth.min()}-{depth.max()}")
+    t_load = time.perf_counter() - t0
+    (n_dec, _), (n_res, _) = (image_io.COUNTS["decode"],
+                              image_io.COUNTS["resize"])
+    phase("raw", f"loader mode 2 (colour + 16-bit depth, no PIL): "
+          f"{len(written)} depth PNGs of {scene}'s train split written "
+          f"({sizes.width}x{sizes.height}, 65535 in a patch) and decoded "
+          f"back equal in {t_write:.2f} s; SevenScenes(mode=2) gave every "
+          f"frame's colour and depth at {W}x{H}, 0 m inside each invalid "
+          f"patch ({n_dec} decodes, {n_res} resizes, {t_load:.2f} s)")
+
+
 def check_raw_store(graphs: str, scene: str, sizes: RawSizes,
                     written: dict, raw: str) -> None:
     """A train store built from the PNGs: counts, no neighbour in its
@@ -2408,6 +2945,7 @@ def run_raw(dev, root: str, sizes: RawSizes) -> dict:
     test, serve one scene and two, parity.  Returns the attention kernel's
     launches by step."""
     raw, stats, written = generate_raw(dev, root, sizes)
+    check_depth_frames(raw, sizes.scenes[0], sizes)
     graphs, save = osp.join(root, "graphs"), osp.join(root, "out")
     nv_tar = osp.join(root, "netvlad_vgg16.tar")
     encoder = _synthetic.netvlad_encoder(dev, sizes.clusters,
@@ -3003,6 +3541,9 @@ def main() -> int:
         att_times.update(time_feed(dev, card, feed_root, feed_sizes, {}))
     with tempfile.TemporaryDirectory() as raw_root:
         att_launches.update(run_raw(dev, raw_root, RawSizes()))
+    with tempfile.TemporaryDirectory() as multi_root:
+        att_launches.update(run_multi_nccl(dev, model, netvlad, multi_root))
+        att_launches.update(run_multi_gloo(dev, multi_root))
     variant_times, variant_bench_err = time_variants(dev, card,
                                                      variant_bench_ms)
     for mode, (svc, queries) in timed.items():

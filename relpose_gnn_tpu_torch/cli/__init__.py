@@ -22,16 +22,33 @@ same flags, defaults, choices and experiment names, plus `--device`
 (default: the CUDA card; `cpu` must be asked for).  A flag whose work the
 port does not have yet raises NotImplementedError naming the ROADMAP.md
 slice that brings it; nothing runs on the CPU in its place.
+
+Over several GPUs, one process per device, each started with the same
+flags and its own `--process-id`:
+
+    python -m relpose_gnn_tpu_torch.cli.train ... --mesh-data 2 \
+        --coordinator host0:29500 --num-processes 2 --process-id 0
+
+`--coordinator` / `--num-processes` / `--process-id` join the processes
+(NCCL on the cards, gloo with `--device cpu`; parallel/multihost.py);
+`--mesh-data` counts GLOBAL ranks.  `cli.test` has no such flags (nor has
+the JAX script): started by `torchrun --nproc-per-node N`, it joins
+through the launcher's environment.  `--local-device-count` is the JAX
+package's virtual devices per process: a torch process drives one device,
+so a value above 1 is refused with that advice.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import os.path as osp
 
 import torch
+import torch.distributed as dist
 
 from relpose_gnn_tpu_torch.models.netvlad import NetVLADEncoder
+from relpose_gnn_tpu_torch.parallel.multihost import initialize
 from relpose_gnn_tpu_torch.retrieval.netvlad_index import seeded_encoder
 from relpose_gnn_tpu_torch.training import checkpoints as ckpt
 
@@ -56,18 +73,37 @@ def netvlad_encoder(checkpoint: str, num_clusters: int = 64,
     return encoder.eval()
 
 
+def start_processes(args) -> bool:
+    """Join the multi-process job the flags describe
+    (`parallel/multihost.py::initialize`; flags absent from a parser count
+    as unset).  Returns whether a process group was started here, which
+    the caller ends (`end_processes`)."""
+    coordinator = getattr(args, "coordinator", "")
+    n = getattr(args, "num_processes", 1)
+    local = getattr(args, "local_device_count", 0)
+    if not (coordinator or n > 1 or local):
+        if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+            return False
+        # started by torchrun: its environment names the coordinator
+        coordinator = (f"{os.environ['MASTER_ADDR']}:"
+                       f"{os.environ['MASTER_PORT']}")
+        n = int(os.environ["WORLD_SIZE"])
+        args = argparse.Namespace(device=args.device,
+                                  process_id=int(os.environ["RANK"]))
+    initialize(coordinator, n, getattr(args, "process_id", 0),
+               local_device_count=local or None, device=args.device)
+    return dist.is_initialized()
+
+
+def end_processes(started: bool) -> None:
+    if started:
+        dist.destroy_process_group()
+
+
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for a flag the port cannot honour yet
     (the flags of `train`, `test` and `serve`; one absent from a parser
     counts as unset)."""
-    if (getattr(args, "coordinator", "")
-            or getattr(args, "num_processes", 1) > 1
-            or getattr(args, "local_device_count", 0)
-            or getattr(args, "mesh_data", 0) > 0):
-        raise NotImplementedError(
-            "--coordinator / --num-processes > 1 / --local-device-count / "
-            "--mesh-data > 0: training, evaluation and serving over several "
-            "cards are ROADMAP.md queue 1, slice 7 (multi-GPU)")
     if getattr(args, "trace_dir", None):
         raise NotImplementedError(
             "--trace-dir: the profiler trace of the serving loop "

@@ -15,9 +15,16 @@ PNG library; query batches go to the card as uint8.
 The same flags as the JAX script, plus `--device`.  `--weights` takes a
 `.pth.tar` (the reference layout, loaded with strict=True) or a
 checkpoint directory of `cli.train`; `--netvlad-checkpoint` the released
-`netvlad_vgg16.tar`.  The multi-process flags (slice 7) and `--trace-dir`
-(slice 9) raise NotImplementedError naming their ROADMAP.md slice.  There
-is no compiled query program, so no compile count is printed.
+`netvlad_vgg16.tar`.  `--trace-dir` (slice 9) raises NotImplementedError
+naming its ROADMAP.md slice.  There is no compiled query program, so no
+compile count is printed.
+
+`--mesh-data N` serves ONE scene over N processes, one per device (the
+multi-process flags of cli/__init__.py): every process builds the same
+database, `replicate_over` keeps it whole on every rank, each query batch
+(whose size N must divide) splits over the ranks, and every rank reads
+back the whole result; one batch in flight, with the same seed for every
+batch, as the JAX script's mesh loop does.
 
     python -m relpose_gnn_tpu_torch.cli.serve --dataset 7Scenes \\
         --scene chess --data-path /data/7Scenes \\
@@ -36,8 +43,9 @@ import numpy as np
 import torch
 
 from relpose_gnn_tpu_torch import resolve_device
-from relpose_gnn_tpu_torch.cli import (add_device_arg, netvlad_encoder,
-                                       refuse_unported)
+from relpose_gnn_tpu_torch.cli import (add_device_arg, end_processes,
+                                       netvlad_encoder, refuse_unported,
+                                       start_processes)
 from relpose_gnn_tpu_torch.data.cambridge import (CambridgeLandmark,
                                                   load_pose_stats)
 from relpose_gnn_tpu_torch.data.graph_builder import _fit
@@ -47,6 +55,8 @@ from relpose_gnn_tpu_torch.evaluation.evaluator import compute_pose_errors
 from relpose_gnn_tpu_torch.evaluation.multiscene import MultiSceneService
 from relpose_gnn_tpu_torch.evaluation.service import (RelocalizationService,
                                                       ServiceConfig)
+from relpose_gnn_tpu_torch.parallel.mesh import create_mesh
+from relpose_gnn_tpu_torch.parallel.multihost import process_count
 from relpose_gnn_tpu_torch.training import checkpoints as ckpt
 from relpose_gnn_tpu_torch.training.experiment import (ExperimentConfig,
                                                        build_model,
@@ -117,12 +127,15 @@ def parse_args(argv):
                    help="restore a --save-db snapshot instead of embedding "
                         "the training split (config must match)")
     p.add_argument("--coordinator", type=str, default="",
-                   help="multi-process serving (not ported yet)")
+                   help="host:port of process 0 (enables multi-process)")
     p.add_argument("--num-processes", type=int, default=1)
     p.add_argument("--process-id", type=int, default=0)
-    p.add_argument("--local-device-count", type=int, default=0)
+    p.add_argument("--local-device-count", type=int, default=0,
+                   help="the JAX package's virtual devices per process; "
+                        "refused above 1 (launch that many processes)")
     p.add_argument("--mesh-data", type=int, default=0,
-                   help=">0: several cards (not ported yet)")
+                   help=">0: split query batches over this many GLOBAL "
+                        "ranks; --batch-size must divide it")
     add_device_arg(p)
     return p.parse_args(argv)
 
@@ -215,6 +228,24 @@ def main(argv=None):
     PoseErrors} for several."""
     args = parse_args(argv if argv is not None else sys.argv[1:])
     refuse_unported(args)
+    started = start_processes(args)
+    try:
+        return _run(args)
+    finally:
+        end_processes(started)
+
+
+def _run(args):
+    mesh = None
+    if args.mesh_data > 0:
+        if len(args.scene) > 1:
+            raise SystemExit("--mesh-data serves ONE scene (serving several "
+                             "scenes over a mesh is not in the JAX package "
+                             "either); pass a single --scene")
+        if args.batch_size % args.mesh_data != 0:
+            raise ValueError(f"--batch-size {args.batch_size} must divide "
+                             f"--mesh-data {args.mesh_data}")
+        mesh = create_mesh(n_data=args.mesh_data, n_model=1)
     device = resolve_device(args.device)
     model = _load_model(args, device)
     h = args.image_size
@@ -269,6 +300,8 @@ def main(argv=None):
         svc.build(imgs, db.poses, model_norm, batch=args.batch_size)
         _sync(device)
         print(f"database built in {time.perf_counter() - t0:.1f}s")
+    if mesh is not None:   # before a save: then rank 0 alone writes
+        svc.replicate_over(mesh)
     if args.save_db:
         svc.save_database(args.save_db)
         print(f"database saved to {args.save_db}")
@@ -278,9 +311,15 @@ def main(argv=None):
           f"depth {args.pipeline_depth}) ...")
     query_batches, src_indices = _make_query_batches(q, args, h, w)
     t0 = time.perf_counter()
-    poses_out = [out["pose"] for out in svc.query_stream(
-        query_batches(), model_norm, depth=args.pipeline_depth,
-        rng=args.seed)]
+    if mesh is None:
+        poses_out = [out["pose"] for out in svc.query_stream(
+            query_batches(), model_norm, depth=args.pipeline_depth,
+            rng=args.seed)]
+    else:
+        print(f"mesh serving: data={args.mesh_data} across "
+              f"{process_count()} process(es)")
+        poses_out = [svc.query(batch, model_norm, args.seed)["pose"]
+                     .cpu().numpy() for batch in query_batches()]
     t_serve = time.perf_counter() - t0
     # trim the tail padding (see _make_query_batches)
     poses_out = np.concatenate(poses_out)[:len(src_indices)]

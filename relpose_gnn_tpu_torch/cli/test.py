@@ -6,6 +6,8 @@ scene, export npz predictions with the median errors in the filename.  The
 same flags, defaults and choices, plus `--device`.  `--weights-filename`
 takes a reference `.pth.tar` or a checkpoint directory of `cli.train`
 (its latest epoch); the JAX package's Orbax directories are refused.
+`--mesh-data N` splits every eval batch over N processes, one per device,
+started by `torchrun --nproc-per-node N` (cli/__init__.py).
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from relpose_gnn_tpu_torch.cli import add_device_arg, refuse_unported
+from relpose_gnn_tpu_torch.cli import (add_device_arg, end_processes,
+                                       refuse_unported, start_processes)
 from relpose_gnn_tpu_torch.training.experiment import (ExperimentConfig,
                                                        run_eval)
 
@@ -59,8 +62,11 @@ def parse_args(argv):
                         "neighbor); 'mean'/'median' fuse ALL incoming "
                         "edge estimates")
     p.add_argument("--mesh-data", type=int, default=0,
-                   help=">0: several cards (not ported yet)")
-    p.add_argument("--mesh-model", type=int, default=1)
+                   help=">0: split each eval batch over this many ranks "
+                        "(one process per device)")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="tensor-parallel axis: the GNN MLPs split over "
+                        "this many ranks")
     add_device_arg(p)
     return p.parse_args(argv)
 
@@ -69,6 +75,18 @@ def main(argv=None) -> dict:
     """Evaluate; returns run_eval's {scene: PoseErrors}."""
     args = parse_args(argv if argv is not None else sys.argv[1:])
     refuse_unported(args)
+    started = start_processes(args)
+    try:
+        results = _run(args)
+    finally:
+        end_processes(started)
+    for scene, err in results.items():
+        print(f"{scene}: median t {err.median_t:.3f} m, "
+              f"median rot {err.median_q:.2f} deg")
+    return results
+
+
+def _run(args) -> dict:
     cfg = ExperimentConfig(
         dataset=args.dataset, test_scene=args.test_scene,
         train_data_dir=args.test_data_dir,
@@ -84,12 +102,8 @@ def main(argv=None) -> dict:
         eval_fuse=args.fuse,
         mesh_data=args.mesh_data, mesh_model=args.mesh_model,
         experiment=2, train_scene=args.test_scene)
-    results = run_eval(cfg, serving_data_path=args.serving_data_path,
-                       device=args.device)
-    for scene, err in results.items():
-        print(f"{scene}: median t {err.median_t:.3f} m, "
-              f"median rot {err.median_q:.2f} deg")
-    return results
+    return run_eval(cfg, serving_data_path=args.serving_data_path,
+                    device=args.device)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 
 Port of the JAX package's `cli/train.py` (the reference's
 training/train.py:349-392 argparse surface): the same flags, defaults,
-choices and `exp_name` scheme, plus `--device`.  Builds the port's
+choices and `exp_name` scheme, plus `--device`; over several GPUs one
+process per device (cli/__init__.py).  Builds the port's
 `ExperimentConfig`, runs `training/experiment.py::run_training` on the
 card (or where `--device` says) and prints each test scene's best
 medians.  Checkpoints land in `<save-dir>/<dataset>/<train-scene>/
@@ -15,7 +16,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from relpose_gnn_tpu_torch.cli import add_device_arg, refuse_unported
+from relpose_gnn_tpu_torch.cli import (add_device_arg, end_processes,
+                                       refuse_unported, start_processes)
 from relpose_gnn_tpu_torch.training.experiment import (ExperimentConfig,
                                                        run_training)
 
@@ -58,16 +60,19 @@ def parse_args(argv):
     p.add_argument("--feat-dim", type=int, default=0,
                    help="override feat/edge/node dims (0 = preset default)")
     p.add_argument("--mesh-data", type=int, default=0,
-                   help=">0: several cards (not ported yet)")
-    p.add_argument("--mesh-model", type=int, default=1)
+                   help=">0: split each batch over this many ranks "
+                        "(GLOBAL, one process per device)")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="tensor-parallel axis: the GNN MLPs split over "
+                        "this many ranks")
     p.add_argument("--coordinator", type=str, default="",
-                   help="host:port of process 0 (multi-process; not "
-                        "ported yet)")
+                   help="host:port of process 0 (enables multi-process)")
     p.add_argument("--num-processes", type=int, default=1)
     p.add_argument("--process-id", type=int, default=0)
     p.add_argument("--local-device-count", type=int, default=0,
-                   help="virtual devices per process (the JAX package's "
-                        "CPU rigs; read only with --coordinator)")
+                   help="the JAX package's virtual devices per process; "
+                        "a torch process drives one device, so above 1 "
+                        "it is refused: launch that many processes")
     p.add_argument("--eval-after-epoch", type=int, default=100,
                    help="in-loop per-scene eval for epochs > this "
                         "(reference: 100, train.py:421)")
@@ -102,6 +107,18 @@ def main(argv=None) -> dict:
     """Train; returns run_training's {"state", "best"}."""
     args = parse_args(argv if argv is not None else sys.argv[1:])
     refuse_unported(args)
+    started = start_processes(args)
+    try:
+        out = _run(args)
+    finally:
+        end_processes(started)
+    for scene, b in out["best"].items():
+        print(f"{scene}: best median t {b['median_t']:.3f} m, "
+              f"best median rot {b['median_q']:.2f} deg")
+    return out
+
+
+def _run(args) -> dict:
     cfg = ExperimentConfig(
         dataset=args.dataset, experiment=args.experiment,
         train_scene=args.train_scene, test_scene=args.test_scene,
@@ -120,11 +137,7 @@ def main(argv=None) -> dict:
         resume=args.resume, ckpt_dir=args.ckpt_dir,
         device_cache=args.device_cache, ckpt_every=args.ckpt_every,
         eval_after_epoch=args.eval_after_epoch)
-    out = run_training(cfg, device=args.device)
-    for scene, b in out["best"].items():
-        print(f"{scene}: best median t {b['median_t']:.3f} m, "
-              f"best median rot {b['median_q']:.2f} deg")
-    return out
+    return run_training(cfg, device=args.device)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-// imageio — host image library of relpose_gnn_tpu_torch: the two loops of
-// the colour-frame path that are too slow in numpy, bound to Python with
-// ctypes (data/image_io.py builds this file with g++ into the package's
+// imageio — host image library of relpose_gnn_tpu_torch: the loops of the
+// colour- and depth-frame paths that are too slow in numpy, bound to Python
+// with ctypes (data/image_io.py builds this file with g++ into the package's
 // _build/ directory on first use).  Host code only.
 //
 // API (all C linkage):
@@ -14,6 +14,10 @@
 //       [out_h, out_w, c], in fixed point with 22 fractional bits, the
 //       horizontal pass first over only the rows the vertical pass reads.
 //       Returns 0, or -1 for a size below 1.
+//   resize_bilinear_u16(in*, h, w, out*, out_h, out_w)
+//       the same resample of a [h, w] uint16 image (Pillow's mode I;16):
+//       the normalised weights stay doubles, each pass sums in double and
+//       rounds half up to uint16.  Returns 0, or -1 for a size below 1.
 //
 // Sizes are checked on the Python side before a pointer reaches this file.
 
@@ -36,11 +40,13 @@ inline uint8_t paeth(int a, int b, int c) {
 
 constexpr int kPrecisionBits = 22;
 
-// Integer weights of one axis: for output index i, taps [first[i],
-// first[i] + count[i]) of the input, weights at k[i * ksize + t].
+// Weights of one axis: for output index i, taps [first[i], first[i] +
+// count[i]) of the input, normalised weights at w[i * ksize + t] and the
+// same in fixed point at k[i * ksize + t].
 struct Axis {
   int ksize = 0;
   std::vector<int> first, count;
+  std::vector<double> w;
   std::vector<int32_t> k;
 };
 
@@ -57,8 +63,8 @@ Axis precompute(int in_size, int out_size) {
   ax.ksize = static_cast<int>(std::ceil(support)) * 2 + 1;
   ax.first.resize(out_size);
   ax.count.resize(out_size);
+  ax.w.assign(static_cast<size_t>(out_size) * ax.ksize, 0.0);
   ax.k.assign(static_cast<size_t>(out_size) * ax.ksize, 0);
-  std::vector<double> w(ax.ksize);
   for (int i = 0; i < out_size; ++i) {
     const double center = (i + 0.5) * scale;
     const double ss = 1.0 / filterscale;
@@ -67,6 +73,7 @@ Axis precompute(int in_size, int out_size) {
     int hi = static_cast<int>(center + support + 0.5);
     if (hi > in_size) hi = in_size;
     const int n = hi - lo;
+    double *w = &ax.w[static_cast<size_t>(i) * ax.ksize];
     double sum = 0.0;
     for (int t = 0; t < n; ++t) {
       w[t] = triangle((t + lo - center + 0.5) * ss);
@@ -83,6 +90,12 @@ Axis precompute(int in_size, int out_size) {
     ax.count[i] = n;
   }
   return ax;
+}
+
+// a double sum rounded half up (Pillow's ROUND_UP), within uint16
+inline uint16_t round16(double ss) {
+  const int v = static_cast<int>(ss >= 0.0 ? ss + 0.5f : ss - 0.5f);
+  return static_cast<uint16_t>(v < 0 ? 0 : (v > 65535 ? 65535 : v));
 }
 
 inline uint8_t clip8(int32_t v) {
@@ -183,6 +196,56 @@ int resize_bilinear_u8(const uint8_t *in, int h, int w, int c, uint8_t *out,
       int32_t acc = 1 << (kPrecisionBits - 1);
       for (int t = 0; t < n; ++t) acc += src[(lo + t) * row_bytes + i] * k[t];
       dst[i] = clip8(acc);
+    }
+  }
+  return 0;
+}
+
+int resize_bilinear_u16(const uint16_t *in, int h, int w, uint16_t *out,
+                        int out_h, int out_w) {
+  if (h < 1 || w < 1 || out_h < 1 || out_w < 1) return -1;
+  if (h == out_h && w == out_w) {
+    std::memcpy(out, in, static_cast<size_t>(h) * w * sizeof(uint16_t));
+    return 0;
+  }
+  const Axis ax = precompute(w, out_w);
+  const Axis ay = precompute(h, out_h);
+  const int row0 = ay.first[0];
+  const int row1 = ay.first[out_h - 1] + ay.count[out_h - 1];
+
+  const uint16_t *src = in;
+  int src_w = w;
+  int shift = 0;
+  std::vector<uint16_t> tmp;
+  if (w != out_w) {
+    tmp.resize(static_cast<size_t>(row1 - row0) * out_w);
+    for (int y = row0; y < row1; ++y) {
+      const uint16_t *line = in + static_cast<size_t>(y) * w;
+      uint16_t *dst = tmp.data() + static_cast<size_t>(y - row0) * out_w;
+      for (int x = 0; x < out_w; ++x) {
+        const double *k = &ax.w[static_cast<size_t>(x) * ax.ksize];
+        const int lo = ax.first[x], n = ax.count[x];
+        double ss = 0.0;
+        for (int t = 0; t < n; ++t) ss += line[lo + t] * k[t];
+        dst[x] = round16(ss);
+      }
+    }
+    src = tmp.data();
+    src_w = out_w;
+    shift = row0;
+  }
+  if (h == out_h) {
+    std::memcpy(out, src, static_cast<size_t>(h) * src_w * sizeof(uint16_t));
+    return 0;
+  }
+  for (int y = 0; y < out_h; ++y) {
+    const double *k = &ay.w[static_cast<size_t>(y) * ay.ksize];
+    const int lo = ay.first[y] - shift, n = ay.count[y];
+    uint16_t *dst = out + static_cast<size_t>(y) * src_w;
+    for (int i = 0; i < src_w; ++i) {
+      double ss = 0.0;
+      for (int t = 0; t < n; ++t) ss += src[(lo + t) * src_w + i] * k[t];
+      dst[i] = round16(ss);
     }
   }
   return 0;

@@ -1,4 +1,4 @@
-"""The port's own PNG codec and bilinear resize for colour frames.
+"""The port's own PNG codec and bilinear resize for colour and depth frames.
 
 The JAX package decodes and resizes frames with PIL; the card's machine
 has no PIL, so the port keeps its own copy of that work:
@@ -16,14 +16,23 @@ has no PIL, so the port keeps its own copy of that work:
     CRC before the image data, image data cut short or that does not
     inflate) raise `CorruptPNG`, a ValueError; a file that cannot be read
     gives None.
-  * `encode_png(path, image)`: uint8 RGB, filter type 0 and `zlib`, for
-    the synthetic scenes; its bytes are its own, its pixels PIL reads
-    back.
+  * `decode_gray_png(path) -> uint8 or uint16 [H, W]`: a grayscale PNG of
+    bit depth 8 or 16 (7-Scenes depth frames are 16-bit, big-endian in the
+    file), what `np.asarray(Image.open(p))` gives in PIL's modes L and
+    I;16.  `CorruptPNG.in_header` tells a file PIL's `Image.open` already
+    refuses (the JAX depth loader's None) from one whose image data PIL
+    fails on only when it reads the pixels.
+  * `encode_png(path, image)`: uint8 RGB or uint16 gray, filter type 0
+    and `zlib`, for the synthetic scenes; its bytes are its own, its
+    pixels PIL reads back.
   * `resize_bilinear(image, (w, h))`: `Image.resize((w, h),
     Image.BILINEAR)` bit for bit (`csrc/imageio.cc::resize_bilinear_u8`):
     the triangle filter widened by the scale when shrinking, weights in
     fixed point at 22 fractional bits, the horizontal pass first, rounded
     to uint8 between the passes.
+  * `resize_bilinear16(image, (w, h))`: the same for uint16 [H, W], as
+    PIL resizes mode I;16 (`csrc/imageio.cc::resize_bilinear_u16`): the
+    normalised weights in double, each pass rounded half up to uint16.
 
 `COUNTS` holds the frames decoded and resized, and the seconds spent, since
 `reset_counts()`.
@@ -75,7 +84,13 @@ def _count(kind: str, t0: float) -> None:
 class CorruptPNG(ValueError):
     """Bytes PIL would not decode: a bad signature, a bad CRC or a
     truncated chunk before the image data, or image data that is cut
-    short or does not inflate."""
+    short or does not inflate.  `in_header`: the fault lies before the
+    image data, where PIL's `Image.open` fails; else PIL fails only once
+    it reads the pixels."""
+
+    def __init__(self, msg: str, in_header: bool = True):
+        super().__init__(msg)
+        self.in_header = in_header
 
 
 def load() -> ctypes.CDLL:
@@ -94,6 +109,11 @@ def load() -> ctypes.CDLL:
                                                ctypes.c_int, ctypes.c_int,
                                                u8p, ctypes.c_int,
                                                ctypes.c_int]
+            u16p = ctypes.POINTER(ctypes.c_uint16)
+            lib.resize_bilinear_u16.restype = ctypes.c_int
+            lib.resize_bilinear_u16.argtypes = [u16p, ctypes.c_int,
+                                                ctypes.c_int, u16p,
+                                                ctypes.c_int, ctypes.c_int]
             _lib = lib
         return _lib
 
@@ -121,8 +141,9 @@ def _split(data: bytes) -> tuple[dict, bytes]:
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
         if ctype == b"IDAT":
             break
-        if ctype == b"IEND":
-            raise CorruptPNG("PNG ends before its image data")
+        if ctype == b"IEND":   # PIL's Image.open stops here and succeeds
+            raise CorruptPNG("PNG ends before its image data",
+                             in_header=False)
         end = pos + 8 + length
         if end + 4 > len(data):
             raise CorruptPNG(f"truncated PNG: chunk {ctype!r} runs past the "
@@ -143,23 +164,48 @@ def _split(data: bytes) -> tuple[dict, bytes]:
     return header, b"".join(idat)
 
 
+def _read(path: str) -> bytes | None:
+    try:
+        with open(path, "rb") as f:
+            return f.read()
+    except OSError:
+        return None
+
+
 def decode_png(path: str) -> np.ndarray | None:
     """Decode the PNG at `path` to uint8 [H, W, 3]; None where the file
     cannot be read (see the module's docstring for what is accepted and
     what raises)."""
     t0 = time.perf_counter()
-    try:
-        with open(path, "rb") as f:
-            data = f.read()
-    except OSError:
+    data = _read(path)
+    if data is None:
         return None
     image = _decode(data)
     _count("decode", t0)
     return image
 
 
-def _decode(data: bytes) -> np.ndarray:
+def decode_gray_png(path: str) -> np.ndarray | None:
+    """Decode the grayscale PNG at `path` (bit depth 8 or 16) to uint8 or
+    uint16 [H, W]; None where the file cannot be read."""
+    t0 = time.perf_counter()
+    data = _read(path)
+    if data is None:
+        return None
     chunks, idat = _split(data)
+    width, height, depth, colour, _ = _header(chunks, depths=(8, 16),
+                                              colours=(0,))
+    pixels = _unfiltered(idat, height, width * depth // 8, depth // 8)
+    image = (pixels.reshape(height, width) if depth == 8 else
+             pixels.reshape(-1).view(">u2").astype(np.uint16).reshape(
+                 height, width))
+    _count("decode", t0)
+    return image
+
+
+def _header(chunks: dict, depths=(8,), colours=tuple(_CHANNELS)) -> tuple:
+    """(width, height, bit depth, colour type, PLTE) of a PNG's chunks
+    before its image data; raises on what is corrupt or refused."""
     if len(chunks.get(b"IHDR", b"")) != 13:
         raise CorruptPNG("PNG without a valid IHDR chunk")
     header = struct.unpack(">IIBBBBB", chunks[b"IHDR"])
@@ -170,40 +216,56 @@ def _decode(data: bytes) -> np.ndarray:
     if interlace:
         raise ValueError("interlaced (Adam7) PNG is refused: the port "
                          "decodes non-interlaced images only")
-    if depth != 8:
+    names = ", ".join(_COLOUR_NAMES[c] for c in colours)
+    if depth not in depths:
         raise ValueError(f"{depth}-bit {_COLOUR_NAMES.get(colour, colour)} "
-                         "PNG is refused: the port decodes bit depth 8 only")
-    if colour not in _CHANNELS:
+                         f"PNG is refused: the port decodes bit depth "
+                         f"{' or '.join(map(str, depths))} only ({names})")
+    if colour not in colours:
         raise ValueError(f"PNG colour type {colour} "
                          f"({_COLOUR_NAMES.get(colour, 'unknown')}) is "
-                         "refused: the port decodes gray, RGB, palette "
-                         "and RGBA")
+                         f"refused here: the port decodes {names}")
     if width < 1 or height < 1:
         raise CorruptPNG(f"PNG of size {width}x{height}")
-    channels = _CHANNELS[colour]
-    stride = width * channels
+    return width, height, depth, colour, plte
+
+
+def _unfiltered(idat: bytes, height: int, stride: int, bpp: int
+                ) -> np.ndarray:
+    """The image data inflated and unfiltered: uint8 [height, stride]."""
     needed = height * (stride + 1)
     try:
         # inflate only the rows the image has, as PIL's decoder stops there
         raw = zlib.decompressobj().decompress(idat, needed)
     except zlib.error as e:
-        raise CorruptPNG(f"PNG image data does not inflate: {e}") from e
+        raise CorruptPNG(f"PNG image data does not inflate: {e}",
+                         in_header=False) from e
     if len(raw) < needed:
         raise CorruptPNG(f"truncated PNG image data: {len(raw)} bytes for "
-                         f"{height} rows of {stride + 1}")
+                         f"{height} rows of {stride + 1}", in_header=False)
     raw = np.frombuffer(raw, np.uint8)
-    pixels = np.empty((height, width, channels), np.uint8)
-    rc = load().png_unfilter(_u8p(raw), raw.size, height, stride, channels,
+    pixels = np.empty((height, stride), np.uint8)
+    rc = load().png_unfilter(_u8p(raw), raw.size, height, stride, bpp,
                              _u8p(pixels))
     if rc != 0:
-        raise CorruptPNG(f"unknown PNG filter type in row {-rc - 1}")
+        raise CorruptPNG(f"unknown PNG filter type in row {-rc - 1}",
+                         in_header=False)
+    return pixels
+
+
+def _decode(data: bytes) -> np.ndarray:
+    chunks, idat = _split(data)
+    width, height, _, colour, plte = _header(chunks)
+    channels = _CHANNELS[colour]
+    pixels = _unfiltered(idat, height, width * channels, channels).reshape(
+        height, width, channels)
     if colour == 3:
         if plte is None:
             raise CorruptPNG("palette PNG without a PLTE chunk")
         idx = pixels[..., 0]
         if int(idx.max()) >= len(plte):
             raise CorruptPNG(f"palette index {int(idx.max())} past the "
-                             f"{len(plte)} PLTE entries")
+                             f"{len(plte)} PLTE entries", in_header=False)
         return plte[idx]
     if colour == 0:
         return np.repeat(pixels, 3, axis=2)
@@ -218,17 +280,25 @@ def _chunk(ctype: bytes, payload: bytes) -> bytes:
 
 
 def encode_png(path: str, image: np.ndarray) -> None:
-    """Write uint8 [H, W, 3] as an RGB PNG: every row filter type 0,
-    deflated at zlib's level 6 (PIL's default)."""
+    """Write uint8 [H, W, 3] as an RGB PNG, or uint16 [H, W] as a 16-bit
+    gray one (a depth frame): every row filter type 0, deflated at zlib's
+    level 6 (PIL's default)."""
     image = np.ascontiguousarray(image)
-    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
-        raise ValueError(f"encode_png takes uint8 [H, W, 3], not "
-                         f"{image.dtype} {image.shape}")
+    if image.dtype == np.uint16 and image.ndim == 2:
+        depth, colour = 16, 0
+        pixels = image.astype(">u2").view(np.uint8)
+    elif image.dtype == np.uint8 and image.ndim == 3 and image.shape[2] == 3:
+        depth, colour = 8, 2
+        pixels = image
+    else:
+        raise ValueError(f"encode_png takes uint8 [H, W, 3] or uint16 "
+                         f"[H, W], not {image.dtype} {image.shape}")
     h, w = image.shape[:2]
-    rows = np.zeros((h, 1 + w * 3), np.uint8)
-    rows[:, 1:] = image.reshape(h, -1)
+    rows = np.zeros((h, 1 + pixels[0].size), np.uint8)
+    rows[:, 1:] = pixels.reshape(h, -1)
     data = (PNG_SIGNATURE
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour,
+                                          0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + _chunk(b"IEND", b""))
     with open(path, "wb") as f:
@@ -250,5 +320,25 @@ def resize_bilinear(image: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     out = np.empty((h, w, image.shape[2]), np.uint8)
     load().resize_bilinear_u8(_u8p(image), image.shape[0], image.shape[1],
                               image.shape[2], _u8p(out), h, w)
+    _count("resize", t0)
+    return out
+
+
+def resize_bilinear16(image: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """uint16 [H, W] -> uint16 [h, w] for `size = (w, h)`: what
+    `Image.resize(size, Image.BILINEAR)` computes on PIL's mode I;16, bit
+    for bit."""
+    image = np.ascontiguousarray(image)
+    if image.dtype != np.uint16 or image.ndim != 2 or min(image.shape) < 1:
+        raise ValueError(f"resize_bilinear16 takes uint16 [H, W], not "
+                         f"{image.dtype} {image.shape}")
+    w, h = (int(v) for v in size)
+    if w < 1 or h < 1:
+        raise ValueError(f"resize_bilinear16 to {size}")
+    t0 = time.perf_counter()
+    out = np.empty((h, w), np.uint16)
+    u16p = ctypes.POINTER(ctypes.c_uint16)
+    load().resize_bilinear_u16(image.ctypes.data_as(u16p), image.shape[0],
+                               image.shape[1], out.ctypes.data_as(u16p), h, w)
     _count("resize", t0)
     return out

@@ -13,10 +13,12 @@ datasets/seven_scenes.py:17-174):
     pose tables + `<vo_lib>_vo_stats.pkl` Sim(3) alignment, with `gt_idx`
     mapping served frames back to ground-truth rows.
 
-Colour frames decode with the port's own PNG decoder and resize
-(`data/image_io.py`).  Depth frames (16-bit gray, modes 1 and 2) decode
-with PIL, imported by `load_depth`: where PIL is missing it raises an
-ImportError naming it.
+Colour and depth frames decode and resize with the port's own PNG library
+(`data/image_io.py`), which gives PIL's pixels bit for bit; nothing here
+imports PIL.  Depth frames (modes 1 and 2) are 16-bit gray PNGs (8-bit
+gray is read too, as PIL reads it); `load_depth` gives None where PIL's
+`Image.open` fails on the file (the JAX loader's rule) and raises where
+the image data is damaged, as PIL does when it reads the pixels.
 The bundled per-scene statistics are the port's own copy under
 `data/stats/`.
 """
@@ -32,6 +34,7 @@ from pathlib import Path
 
 import numpy as np
 
+from relpose_gnn_tpu_torch.data import image_io
 from relpose_gnn_tpu_torch.data import transforms as T
 from relpose_gnn_tpu_torch.ops.pose import process_poses
 
@@ -167,23 +170,25 @@ class SevenScenes:
             osp.expanduser(str(self.data_path))))
 
     def load_depth(self, index: int) -> np.ndarray | None:
-        """Depth frame in metres [H, W] (mm, 65535 = invalid -> 0),
-        resized like the RGB (PIL's bilinear resample of the 16-bit
-        frame)."""
+        """Depth frame in metres [H, W] (mm, 65535 = invalid -> 0 after
+        the resize), resized like the RGB (PIL's bilinear resample of the
+        16-bit frame)."""
         try:
-            from PIL import Image
-        except ImportError as e:
-            raise ImportError(
-                "decoding 16-bit depth frames needs PIL (Pillow), which is "
-                "not installed") from e
-        try:
-            img = Image.open(self.d_imgs[index])
-        except (IOError, OSError):
+            img = image_io.decode_gray_png(self.d_imgs[index])
+        except image_io.CorruptPNG as e:
+            if e.in_header:    # where Image.open fails
+                return None
+            raise
+        if img is None:
             return None
-        img = img.resize(T.short_side_size(img.size[1], img.size[0],
-                                           self.image_size), Image.BILINEAR)
-        d = np.asarray(img, np.float32)
-        d[np.asarray(img) == 65535] = 0.0
+        size = T.short_side_size(img.shape[0], img.shape[1],
+                                 self.image_size)
+        if img.dtype == np.uint16:
+            img = image_io.resize_bilinear16(img, size)
+        else:
+            img = image_io.resize_bilinear(img[..., None], size)[..., 0]
+        d = img.astype(np.float32)
+        d[img == 65535] = 0.0
         return d / 1000.0
 
     def _load_mode(self, index: int):

@@ -32,18 +32,33 @@ What differs from the JAX service, and why:
 * The snapshot fingerprint hashes the model's `state_dict` keys, shapes
   and dtypes; a snapshot written by the JAX service fails that check
   loudly.  One without fingerprint keys loads.
-* `replicate_over` / `shard_database` arrive with the multi-GPU slice.
+* Over several GPUs each process holds its own copy of the service.
+  `replicate_over(mesh)` is the throughput form: the weights and the four
+  tables are whole on every rank (each rank built them the same), a query
+  batch is split over the mesh's data axis, each rank answers its rows
+  (its stochastic draws keyed by the GLOBAL query row, so a split batch
+  selects what one process selects) and every rank gets the whole result.
+  `shard_database(mesh)` is the capacity form: the descriptor and
+  embedding tables keep only this rank's rows of M, poses and validity
+  stay whole, and the query path ranks and looks up across the ranks
+  (parallel/sharded_db.py) with the same results as the replicated
+  tables.  Growth, tombstones, compaction and snapshots keep the sharded
+  layout: a global row has one owner rank; a snapshot is the replicated
+  service's `.npz`, gathered and written by rank 0, and loading one
+  re-shards it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import logging
 from collections import deque
 from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from relpose_gnn_tpu_torch import resolve_device
@@ -54,12 +69,16 @@ from relpose_gnn_tpu_torch.models.netvlad import NetVLADEncoder
 from relpose_gnn_tpu_torch.models.posenet import RelPoseGNN
 from relpose_gnn_tpu_torch.retrieval.netvlad_index import (IMAGENET_MEAN,
                                                            IMAGENET_STD)
+from relpose_gnn_tpu_torch.parallel.mesh import (DATA_AXIS, axis_group,
+                                                 axis_rank, axis_size)
+from relpose_gnn_tpu_torch.parallel.multihost import (gather_rows, host_read,
+                                                      is_main_process)
+from relpose_gnn_tpu_torch.parallel.sharded_db import select_and_lookup
+from relpose_gnn_tpu_torch.parallel.sharding import batch_rows
 from relpose_gnn_tpu_torch.retrieval.subsample import (
     fold_in, ranked_indices, subsample_neighbors_batch)
 
 _RANK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_MULTI_GPU = ("arrives with the multi-GPU slice (ROADMAP.md, 'Modules to "
-              "port', multi-GPU)")
 
 
 def _pipelined_stream(query_fn: Callable, batches: Iterable, depth: int,
@@ -168,11 +187,12 @@ def _tombstone(valid: torch.Tensor, count: int, indices) -> None:
     valid[torch.as_tensor(idx_np, device=valid.device)] = False
 
 
-def _compact(desc, emb, poses, valid, count):
+def _compact(desc, emb, poses, valid, count, take=None):
     """Stable front-compaction of a (desc, emb, poses, valid, count)
     database.  Returns the new tensors plus the int64 [M] old_to_new slot
     map (-1 for tombstoned/padded slots).  The row gather allocates a
-    full-size destination transiently."""
+    full-size destination transiently; `take(table, perm)` gathers the
+    descriptor and embedding tables where they are not whole (sharded)."""
     valid_np = valid.cpu().numpy()
     m = valid_np.shape[0]
     n_valid = int(valid_np.sum())
@@ -184,7 +204,19 @@ def _compact(desc, emb, poses, valid, count):
     perm = torch.as_tensor(np.argsort(~valid_np, kind="stable"),
                            device=valid.device)
     new_valid = torch.as_tensor(np.arange(m) < n_valid, device=valid.device)
-    return desc[perm], emb[perm], poses[perm], new_valid, n_valid, old_to_new
+    take = take or (lambda table, p: table[p])
+    return (take(desc, perm), take(emb, perm), poses[perm], new_valid,
+            n_valid, old_to_new)
+
+
+# The table's similarities are computed in blocks of this many rows, so
+# that no value's sum depends on how many rows the table has: cuBLAS picks
+# its reduction order (split-K) by the output's shape, which moved values
+# by up to 5e-6 relative between a 2048-row table and its halves on the
+# H100, enough to reorder near-ties.  A table sharded over ranks
+# (parallel/sharded_db.py) then ranks by the very values the whole table
+# gives, wherever its rows per rank are a multiple of the block.
+SIM_BLOCK = 512
 
 
 def similarities(q_desc: torch.Tensor,
@@ -195,13 +227,19 @@ def similarities(q_desc: torch.Tensor,
     would erase the ranking).  On the card that is
     `mm(..., out_dtype=float32)`, which reads the table as it is stored;
     the CPU has no such GEMM, so there both operands are widened first,
-    which gives the same products and sums."""
+    which gives the same products and sums.  One product per SIM_BLOCK
+    rows of the table."""
     q = q_desc.to(db_desc.dtype)
-    if db_desc.dtype == torch.float32:
-        return q @ db_desc.T
-    if db_desc.device.type == "cuda":
-        return torch.mm(q, db_desc.T, out_dtype=torch.float32)
-    return q.float() @ db_desc.float().T
+
+    def block(t):
+        if t.dtype == torch.float32:
+            return q @ t.T
+        if t.device.type == "cuda":
+            return torch.mm(q, t.T, out_dtype=torch.float32)
+        return q.float() @ t.float().T
+
+    return torch.cat([block(db_desc[i:i + SIM_BLOCK])
+                      for i in range(0, db_desc.shape[0], SIM_BLOCK)], 1)
 
 
 @dataclasses.dataclass
@@ -275,6 +313,8 @@ class RelocalizationService:
         self._built_hw = None    # (H, W) the database was embedded at
         self._nv_mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
         self._nv_std = torch.as_tensor(IMAGENET_STD, device=self.device)
+        self._mesh = None        # replicate_over / shard_database
+        self._db_axis = None     # the axis the tables are sharded over
 
     # -- database construction ----------------------------------------
 
@@ -317,11 +357,15 @@ class RelocalizationService:
         return desc.to(self._rank_dt), emb
 
     def _write_rows(self, images01, model_norm, batch: int, start: int,
-                    desc, emb, rows: int) -> tuple:
+                    desc, emb, rows: int, held: tuple | None = None
+                    ) -> tuple:
         """Embed `images01` in chunks under `model_norm` and write them
         into rows [start, start + len) of the tables `desc` and `emb`, in
-        place.  Allocates tables of `rows` rows at the first chunk when
-        `desc` is None.  Returns (desc, emb)."""
+        place; `held` = (lo, hi) says the tables hold the global rows
+        [lo, hi) only (sharded tables), the others are not written.
+        Allocates tables of `rows` rows at the first chunk when `desc` is
+        None.  Returns (desc, emb)."""
+        lo, hi = held or (0, rows)
         for i in range(0, len(images01), batch):
             d, e = self._embed(self._to_device01(images01[i:i + batch]),
                                model_norm)
@@ -330,9 +374,21 @@ class RelocalizationService:
                                    device=self.device)
                 emb = torch.zeros((rows, e.shape[1]), dtype=e.dtype,
                                   device=self.device)
-            desc[start + i:start + i + len(d)] = d
-            emb[start + i:start + i + len(e)] = e
+            a, b = max(start + i, lo), min(start + i + len(d), hi)
+            if a < b:   # global rows [a, b) of this chunk live here
+                desc[a - lo:b - lo] = d[a - start - i:b - start - i]
+                emb[a - lo:b - lo] = e[a - start - i:b - start - i]
         return desc, emb
+
+    def _own_rows(self) -> tuple[int, int]:
+        """The global rows [lo, hi) of the descriptor and embedding
+        tables this rank holds (all of them unless sharded)."""
+        m = self.db_poses.shape[0]
+        if self._db_axis is None:
+            return 0, m
+        m_l = m // axis_size(self._mesh, self._db_axis)
+        lo = axis_rank(self._mesh, self._db_axis) * m_l
+        return lo, lo + m_l
 
     def build(self, db_images01: np.ndarray, db_poses: np.ndarray,
               model_norm, batch: int = 16) -> None:
@@ -358,6 +414,8 @@ class RelocalizationService:
         # rows count as valid only once all of them are embedded
         self.db_valid = torch.arange(rows, device=self.device) < m
         self.db_count = m
+        if self._db_axis is not None:
+            self._keep_own_rows()
 
     def add_frames(self, images01: np.ndarray, poses: np.ndarray,
                    model_norm, batch: int = 16) -> None:
@@ -389,7 +447,7 @@ class RelocalizationService:
                 f"capacity exceeded: {self.db_count} + {n_new} > {cap}")
         pose_rows = _pose_rows(poses, n_new, "add_frames", self.device)
         self._write_rows(images01, model_norm, batch, self.db_count,
-                         self.db_desc, self.db_emb, cap)
+                         self.db_desc, self.db_emb, cap, self._own_rows())
         self.db_poses[self.db_count:self.db_count + n_new] = pose_rows
         self.db_valid[self.db_count:self.db_count + n_new] = True
         self.db_count += n_new
@@ -420,8 +478,30 @@ class RelocalizationService:
         (self.db_desc, self.db_emb, self.db_poses, self.db_valid,
          self.db_count, old_to_new) = _compact(
             self.db_desc, self.db_emb, self.db_poses, self.db_valid,
-            self.db_count)
+            self.db_count,
+            None if self._db_axis is None else self._take_sharded)
         return old_to_new
+
+    def _take_sharded(self, table: torch.Tensor,
+                      perm: torch.Tensor) -> torch.Tensor:
+        """`table[perm]` for a table sharded over the ranks: new global
+        row g is old row perm[g], on whichever rank owns it.  Each rank's
+        block is broadcast in turn and every rank keeps the rows it now
+        owns, so no rank ever holds more than two blocks."""
+        lo, hi = self._own_rows()
+        mine = perm[lo:hi].cpu().numpy()   # old rows of this rank's rows
+        group = axis_group(self._mesh, self._db_axis)
+        out = torch.empty_like(table)
+        for src in range(axis_size(self._mesh, self._db_axis)):
+            blk = table.clone()
+            dist.broadcast(blk, dist.get_global_rank(group, src),
+                           group=group)
+            take = np.flatnonzero(mine // (hi - lo) == src)
+            if take.size:
+                out[torch.as_tensor(take, device=table.device)] = blk[
+                    torch.as_tensor(mine[take] - src * (hi - lo),
+                                    device=table.device)]
+        return out
 
     # -- database persistence ------------------------------------------
 
@@ -437,13 +517,23 @@ class RelocalizationService:
             return (x.float() if x.dtype == torch.bfloat16 else x
                     ).cpu().numpy()
 
+        def table(x):   # a sharded table's rows from every rank
+            if self._db_axis is None:
+                return host(x)
+            return host_read(x, self._mesh, self._db_axis)
+
         def name(dt):
             return str(dt).removeprefix("torch.")
 
         # bind the snapshot to the weights + input resolution that
         # embedded it
         struct, checksum = _model_fingerprint(self.model)
-        np.savez(path, desc=host(self.db_desc), emb=host(self.db_emb),
+        desc, emb = table(self.db_desc), table(self.db_emb)
+        placed = self._mesh is not None and dist.is_initialized()
+        if placed and not is_main_process():   # one copy, rank 0 writes
+            dist.barrier()
+            return
+        np.savez(path, desc=desc, emb=emb,
                  poses=host(self.db_poses), valid=host(self.db_valid),
                  count=np.int64(self.db_count),
                  desc_dtype=name(self.db_desc.dtype),
@@ -453,6 +543,8 @@ class RelocalizationService:
                  model_struct=np.asarray(struct),
                  model_checksum=np.float64(checksum),
                  built_hw=np.asarray(self._built_hw or (0, 0), np.int64))
+        if placed:
+            dist.barrier()
 
     def load_database(self, path: str) -> None:
         """Restore a save_database() snapshot onto the device.  The
@@ -511,14 +603,74 @@ class RelocalizationService:
         self._model_norm = None
         if "built_hw" in z.files and int(z["built_hw"][0]) > 0:
             self._built_hw = tuple(int(v) for v in z["built_hw"])
+        if self._db_axis is not None:
+            self._keep_own_rows()
 
-    # -- multi-GPU forms -------------------------------------------------
+    # -- several GPUs --------------------------------------------------
 
     def replicate_over(self, mesh) -> None:
-        raise NotImplementedError(f"replicate_over {_MULTI_GPU}")
+        """Serve with the weights and the whole database on every rank of
+        `mesh`: the THROUGHPUT form (each rank answers its rows of a query
+        batch; contrast shard_database, which splits the tables for
+        CAPACITY).  Every process built or loaded the same tables, so
+        nothing moves here: later queries split their batch over the data
+        axis (which it must divide) and gather the results on every
+        rank."""
+        self._require_built()
+        if self._db_axis is not None:
+            raise ValueError("database is sharded (shard_database); "
+                             "replicate_over is the replicated-DB form")
+        self._mesh = mesh
 
     def shard_database(self, mesh, axis: str | None = None) -> None:
-        raise NotImplementedError(f"shard_database {_MULTI_GPU}")
+        """Shard the two big tables (desc [M, 32768], emb [M, D]) over a
+        mesh axis: several cards buy CAPACITY, not just throughput.  poses
+        and valid stay whole (25 B a frame).  The query path switches to
+        the sharded retrieval (parallel/sharded_db.py: per-rank top-C,
+        candidates gathered, one all-reduce for the lookup).  Neighbours
+        and anchors match the replicated tables' exactly where the rows a
+        rank holds, M / n, are a multiple of SIM_BLOCK: `similarities`
+        then runs the same GEMM shapes on both layouts.  Otherwise the
+        card's GEMMs may sum in another order, near-ties may rank
+        otherwise, and a warning says so (tests/test_torch_sharded_db.py
+        holds the equality on the CPU).
+
+        Call after build()/load_database().  M must divide the axis size;
+        stochastic mode requires cfg.retrieval_candidates.  Later
+        add_frames / invalidate / compact / load keep the layout."""
+        axis = axis or DATA_AXIS
+        self._require_built()
+        if self._mesh is not None and self._mesh is not mesh:
+            raise ValueError("service is already placed over a different "
+                             "mesh; build a new service to re-shard")
+        m, n = self.db_poses.shape[0], axis_size(mesh, axis)
+        if m % n != 0:
+            raise ValueError(
+                f"database size M={m} must divide mesh axis {axis!r} "
+                f"(size {n}); pad cfg.capacity to a multiple")
+        if not self.cfg.deterministic and self.cfg.retrieval_candidates \
+                is None:
+            raise ValueError(
+                "sharded-database stochastic retrieval requires "
+                "cfg.retrieval_candidates (a full-M sort would gather the "
+                "sharded tables)")
+        if self._db_axis is not None:
+            return
+        if self.device.type == "cuda" and (m // n) % SIM_BLOCK:
+            logging.getLogger("relpose_gnn_tpu_torch").warning(
+                "shard_database: %d rows a rank is no multiple of "
+                "SIM_BLOCK=%d, so the GEMMs sum in another order than the "
+                "replicated table's and near-ties may rank otherwise",
+                m // n, SIM_BLOCK)
+        self._mesh, self._db_axis = mesh, axis
+        self._keep_own_rows()
+
+    def _keep_own_rows(self) -> None:
+        """Cut whole descriptor and embedding tables down to this rank's
+        rows."""
+        lo, hi = self._own_rows()
+        self.db_desc = self.db_desc[lo:hi].clone()
+        self.db_emb = self.db_emb[lo:hi].clone()
 
     # -- the query path, stage by stage ----------------------------------
 
@@ -527,15 +679,16 @@ class RelocalizationService:
         return self.model.encode_nodes(query_model_in[:, None])
 
     def _select(self, sim: torch.Tensor, db_valid: torch.Tensor,
-                rng: int) -> torch.Tensor:
+                rng: int, row0: int = 0) -> torch.Tensor:
         """Neighbor selection [B, K] (db_valid masks padding and
-        tombstones on both branches)."""
+        tombstones on both branches); the rows are rows [row0, row0 + B)
+        of the query batch for the stochastic draws."""
         cfg = self.cfg
         k = cfg.seq_len - 1
         if not cfg.deterministic:
             return subsample_neighbors_batch(
                 rng, sim, ~db_valid, k, cfg.sampling_period,
-                candidates=cfg.retrieval_candidates)
+                candidates=cfg.retrieval_candidates, row0=row0)
         # plain strided top-k: every sampling_period-th of the ranked
         # list.  Only ranks 0..(k-1)*sp are consumed, so rank that window.
         # Ranks clamp to the last VALID entry: with fewer valid frames
@@ -555,7 +708,7 @@ class RelocalizationService:
 
     @torch.inference_mode()
     def _query_fn(self, model_norm, db: tuple, query01: torch.Tensor,
-                  rng: int, norm_ms) -> dict:
+                  rng: int, norm_ms, row0: int = 0) -> dict:
         cfg = self.cfg
         db_desc, db_emb, db_poses, db_valid = db
         # norm_ms=(mean, std) passes the scene normalization as runtime
@@ -580,17 +733,28 @@ class RelocalizationService:
         else:
             q_emb = None
             q_desc = self.netvlad(self._netvlad_input(query01))
-        sim = similarities(q_desc, db_desc)
-        # 2. neighbor selection
-        nbrs = self._select(sim, db_valid, rng)
+        if self._db_axis is not None:
+            # 2'. sharded tables: per-rank top-C, the candidates gathered,
+            # one all-reduce for the embedding lookup
+            nbrs, nbr_emb = select_and_lookup(
+                q_desc, db_desc, db_emb, db_valid, mesh=self._mesh,
+                axis=self._db_axis, k=cfg.seq_len - 1,
+                sampling_period=cfg.sampling_period,
+                deterministic=cfg.deterministic,
+                candidates=cfg.retrieval_candidates, seed=rng)
+        else:
+            sim = similarities(q_desc, db_desc)
+            # 2. neighbor selection
+            nbrs = self._select(sim, db_valid, rng, row0)
+            nbr_emb = db_emb[nbrs]
         # 3. graph assembly from cached embeddings, 4. GNN + pose recovery
         if q_emb is None:
             q_emb = self._encode(query_model_in)
         adj = torch.as_tensor(~np.eye(cfg.seq_len, dtype=bool),
                               device=self.device).expand(
             b, cfg.seq_len, cfg.seq_len)
-        out = anchored_pose_step(self.model, q_emb, db_emb[nbrs],
-                                 db_poses[nbrs], adj)
+        out = anchored_pose_step(self.model, q_emb, nbr_emb, db_poses[nbrs],
+                                 adj)
         return {"pose": out["pred"], "neighbors": nbrs,
                 "anchor": out["nbr"]}
 
@@ -619,11 +783,20 @@ class RelocalizationService:
         """Run the query path against EXPLICIT database tensors
         `db = (desc [M, Dv], emb [M, D], poses [M, 6], valid [M])` instead
         of this service's own (the hook a multi-scene service uses).  Same
-        contract as `query` otherwise."""
+        contract as `query` otherwise.  After replicate_over, this rank
+        answers its rows of the batch and gathers the others'."""
         _check_built_hw(self._built_hw, np.shape(query_images01), "query")
-        return self._query_fn(None if norm_ms is not None else model_norm,
-                              db, self._to_device01(query_images01),
-                              0 if rng is None else int(rng), norm_ms)
+        norm = None if norm_ms is not None else model_norm
+        rng = 0 if rng is None else int(rng)
+        if self._mesh is None or self._db_axis is not None:
+            return self._query_fn(norm, db,
+                                  self._to_device01(query_images01), rng,
+                                  norm_ms)
+        rows = batch_rows(self._mesh, len(query_images01))
+        out = self._query_fn(norm, db,
+                             self._to_device01(query_images01[rows]), rng,
+                             norm_ms, row0=rows.start)
+        return {k: gather_rows(v, self._mesh) for k, v in out.items()}
 
     def query_stream(self, batches, model_norm, depth: int = 2,
                      rng: int | None = None, norm_ms=None):

@@ -1,7 +1,6 @@
 """Serving path: cached database embeddings + query-only encoding (PyTorch).
 
-Port of `relpose_gnn_tpu/evaluation/serving.py` (single device; the JAX
-`mesh` branch goes with the multi-GPU slice).  A query graph is
+Port of `relpose_gnn_tpu/evaluation/serving.py`.  A query graph is
 [query | N-1 database neighbours]; database frames never change, so
 
   1. `embed_database` runs the backbone over each database frame once;
@@ -13,7 +12,9 @@ Port of `relpose_gnn_tpu/evaluation/serving.py` (single device; the JAX
 Everything runs under `torch.inference_mode()`.  `embed_database` and
 `evaluate_scene_cached` run on `device`: None means the CUDA card (they
 raise where there is none) and the model is moved there; `"cpu"` is an
-explicit request.
+explicit request.  With a `mesh` (parallel/mesh.py), `evaluate_scene_cached`
+splits the database's embedding and every query batch over the mesh's data
+axis, as the JAX `mesh` branch does.
 
 `anchored_pose_step` is the part the relocalization service
 (evaluation/service.py) shares with the cached eval step: the graph from
@@ -31,6 +32,10 @@ from relpose_gnn_tpu_torch import resolve_device
 from relpose_gnn_tpu_torch.data.pipeline import make_normalizer
 from relpose_gnn_tpu_torch.models.posenet import RelPoseGNN
 from relpose_gnn_tpu_torch.ops import graph as graph_ops
+from relpose_gnn_tpu_torch.parallel.mesh import (DATA_AXIS, axis_group,
+                                                 axis_size)
+from relpose_gnn_tpu_torch.parallel.multihost import gather_rows
+from relpose_gnn_tpu_torch.parallel.sharding import batch_rows
 from relpose_gnn_tpu_torch.training.trainer import (check_fuse_ok,
                                                     fuse_pose_estimates)
 
@@ -130,12 +135,24 @@ def make_cached_eval_step(model: RelPoseGNN, ref_node: int = 0,
     return eval_step
 
 
+def _split_padded(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of `x` padded (by repeating its last row) to a
+    multiple of the mesh's data axis; `x` whole without a mesh."""
+    if mesh is None:
+        return x
+    pad = (-x.shape[0]) % axis_size(mesh, DATA_AXIS)
+    if pad:
+        x = torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
+    return x[batch_rows(mesh, x.shape[0])]
+
+
 def evaluate_scene_cached(model: RelPoseGNN, packed_ds,
                           database_images: np.ndarray,
                           batch_size: int = 64, embed_batch: int = 32,
                           static_anchor: int | None = None,
                           fuse: str = "first",
-                          device: torch.device | str | None = None) -> dict:
+                          device: torch.device | str | None = None,
+                          mesh=None) -> dict:
     """Cached-serving evaluation over a packed store that carries `nbr_idx`
     (data/packed.py::PackedGraphDataset).
 
@@ -144,7 +161,13 @@ def evaluate_scene_cached(model: RelPoseGNN, packed_ds,
     `embed_batch`; then each batch of `batch_size` graphs encodes its query
     images and gathers its neighbours' embeddings.  Returns {pred [L, 6],
     target [L, 6]} as numpy pose6 arrays.  Runs on `device` (None: the
-    CUDA card); the model is moved there."""
+    CUDA card); the model is moved there.
+
+    With `mesh`, the weights and the embedding cache are whole on every
+    rank, and every chunk and batch is padded to a multiple of the data
+    axis (repeating its last row), split over it, gathered back on every
+    rank and trimmed to its own rows: the predictions are the single-
+    device path's, on every rank."""
     if packed_ds.nbr_idx is None:
         raise ValueError("the packed store has no nbr_idx.npy; rebuild it "
                          "with neighbour indices for cached serving")
@@ -152,10 +175,19 @@ def evaluate_scene_cached(model: RelPoseGNN, packed_ds,
     model = model.to(device)
     normalize = make_normalizer(packed_ds.mean, packed_ds.std, device)
 
+    def run(fn, *arrays):
+        """fn over this rank's rows of `arrays`, whole again after."""
+        n = arrays[0].shape[0]
+        out = fn(*(_split_padded(a, mesh) for a in arrays))
+        if mesh is None:
+            return out
+        return {k: gather_rows(v, mesh)[:n] if v.dim() else v
+                for k, v in out.items()}
+
     embed = make_embed_fn(model)
     cache = torch.cat([
-        embed(normalize(torch.from_numpy(
-            np.ascontiguousarray(database_images[i:i + embed_batch]))))
+        run(lambda x: {"emb": embed(x)}, normalize(torch.from_numpy(
+            np.ascontiguousarray(database_images[i:i + embed_batch]))))["emb"]
         for i in range(0, len(database_images), embed_batch)])
     step = make_cached_eval_step(model, static_anchor=static_anchor,
                                  fuse=fuse)
@@ -165,11 +197,12 @@ def evaluate_scene_cached(model: RelPoseGNN, packed_ds,
         idx = np.arange(start, min(start + batch_size, len(packed_ds)))
         batch = packed_ds.batch(idx, with_nbr_idx=True)
         nbr_idx = torch.from_numpy(batch["nbr_idx"].astype(np.int64))
-        out = step(normalize(torch.from_numpy(batch["images"][:, 0])),
-                   cache[nbr_idx.to(device)],
-                   torch.from_numpy(batch["poses"][:, 1:]).to(device),
-                   torch.from_numpy(batch["adj"]).to(device))
-        check_fuse_ok(out, "evaluate_scene_cached")
+        out = run(step, normalize(torch.from_numpy(batch["images"][:, 0])),
+                  cache[nbr_idx.to(device)],
+                  torch.from_numpy(batch["poses"][:, 1:]).to(device),
+                  torch.from_numpy(batch["adj"]).to(device))
+        check_fuse_ok(out, "evaluate_scene_cached",
+                      None if mesh is None else axis_group(mesh, DATA_AXIS))
         preds.append(out["pred"].float().cpu().numpy())
         targets.append(batch["poses"][:, 0])
     return {"pred": np.concatenate(preds), "target": np.concatenate(targets)}

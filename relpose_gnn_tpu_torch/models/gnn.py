@@ -13,6 +13,12 @@ Parameter names follow the reference state dict: `edge_model.edge_mlp`,
 `mlp`, `mlp_updating` (each `Seq(Linear, ReLU, Linear)`, so `.0`/`.2`) and
 `att`.  `dtype` is the compute dtype; parameters stay float32 and are cast
 where they are used.
+
+Tensor parallelism (parallel/sharding.py::TensorParallel): an MLP given a
+`ModelShard` (`.tp`) holds this rank's block of the hidden features, its
+first linear's output rows and bias and its second linear's input
+columns; its input passes `copy_to_model` and the second product's
+partial sums `reduce_from_model` before the (whole) bias is added.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from relpose_gnn_tpu_torch.models.dense import dense
 from relpose_gnn_tpu_torch.ops.graph import (compact_mean_aggregate,
                                              gather_rows,
                                              masked_mean_aggregate)
+from relpose_gnn_tpu_torch.parallel.sharding import (copy_to_model,
+                                                     reduce_from_model)
 
 
 class MLP2(nn.Sequential):
@@ -39,10 +47,21 @@ class MLP2(nn.Sequential):
         super().__init__(nn.Linear(in_dim, hidden), nn.ReLU(),
                          nn.Linear(hidden, out))
         self.dtype = dtype
+        self.tp = None    # a ModelShard under tensor parallelism
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(F.relu(dense(x, self[0], self.dtype)), self[2],
-                     self.dtype)
+        if self.tp is None:
+            return dense(F.relu(dense(x, self[0], self.dtype)), self[2],
+                         self.dtype)
+        h = F.relu(dense(copy_to_model(x, self.tp), self[0], self.dtype))
+        return self._second(h, h.dtype)
+
+    def _second(self, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        """The row-parallel second linear: this rank's partial product,
+        summed over the model group, then the bias."""
+        fc2 = self[2]
+        part = F.linear(h, fc2.weight.to(dt))
+        return reduce_from_model(part, self.tp) + fc2.bias.to(dt)
 
 
 class PairMLP2(MLP2):
@@ -78,6 +97,8 @@ class PairMLP2(MLP2):
             if arr.shape[-1] != d:
                 raise ValueError(f"operand of width {arr.shape[-1]} where "
                                  f"{d} was declared")
+            if self.tp is not None:
+                arr = copy_to_model(arr, self.tp)
             part = F.linear(arr.to(dt), fc1.weight[:, off:off + d].to(dt))
             off += d
             if kind == "s":
@@ -90,6 +111,8 @@ class PairMLP2(MLP2):
                 raise ValueError(f"operand kind {kind!r} (want s, t or e)")
             h = part if h is None else h + part
         h = F.relu(h + fc1.bias.to(dt))
+        if self.tp is not None:
+            return self._second(h, dt)
         return F.linear(h, fc2.weight.to(dt), fc2.bias.to(dt))
 
 

@@ -20,7 +20,11 @@ Parameter names are the reference PoseNetX_R2 state dict's
 flax's semantics (keep with probability 1 - rate, scale kept values by
 1 / (1 - rate); separate draws for x and e).  Dropout also fires at eval
 with `eval_dropout=True`, the reference's quirk.  Its masks come from the
-`generator` the caller passes, never from the global RNG.  `remat=True`
+`generator` the caller passes, never from the global RNG.  Over several
+ranks (`shard`, parallel/sharding.py::DataShard) the batch is this rank's
+rows of a global one: BatchNorm takes the global batch's statistics and
+dropout draws the global batch's masks and keeps this rank's rows, so two
+ranks compute what one process computes on the whole batch.  `remat=True`
 recomputes the backbone's activations in the backward
 (`torch.utils.checkpoint`); the recomputation leaves the BN running
 statistics alone.  What the JAX config offers beyond this raises
@@ -30,6 +34,7 @@ NotImplementedError naming the ROADMAP.md queue that will bring it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -42,6 +47,8 @@ from relpose_gnn_tpu_torch.models.dense import dense
 from relpose_gnn_tpu_torch.models.gnn import DenseEdgeGNN
 from relpose_gnn_tpu_torch.models.resnet import ResNet
 from relpose_gnn_tpu_torch.ops import graph as graph_ops
+from relpose_gnn_tpu_torch.parallel.sharding import (copy_to_model,
+                                                     gather_from_model)
 
 _STAGES = {"resnet34": (3, 4, 6, 3), "resnet18": (2, 2, 2, 2)}
 
@@ -116,9 +123,35 @@ class RelPoseGNN(nn.Module):
         self.fc_wpqr = nn.Linear(c.node_dim, 3)
         self.fc_xyz_R = nn.Linear(c.edge_dim, 3)
         self.fc_wpqr_R = nn.Linear(c.edge_dim, 3)
+        self.tp = None    # a ModelShard under tensor parallelism
 
-    def encode_nodes(self, images: torch.Tensor,
-                     train: bool = False) -> torch.Tensor:
+    def set_model_shard(self, tp) -> None:
+        """Run the split layers of parallel/sharding.py::TensorParallel on
+        this rank's blocks (their parameters already cut to them): the
+        GNN MLPs and `proj_edge`, whose output columns are gathered."""
+        self.tp = tp
+        for i in range(self.cfg.num_gnn_layers):
+            layer = getattr(self, f"gnn{i + 1}")
+            for mlp in (layer.edge_model.edge_mlp, layer.mlp,
+                        layer.mlp_updating):
+                mlp.tp = tp
+
+    def _proj_edge(self, e: torch.Tensor) -> torch.Tensor:
+        """`proj_edge`, column-parallel under tensor parallelism: this
+        rank's output columns (its weight rows, the whole bias's block),
+        gathered whole for the GNN."""
+        if self.tp is None:
+            return dense(e, self.proj_edge)
+        lin = self.proj_edge
+        dt = torch.promote_types(e.dtype, lin.weight.dtype)
+        bias = copy_to_model(lin.bias, self.tp)[self.tp.cols(
+            lin.bias.shape[0])]
+        local = F.linear(copy_to_model(e, self.tp).to(dt),
+                         lin.weight.to(dt), bias.to(dt))
+        return gather_from_model(local, self.tp)
+
+    def encode_nodes(self, images: torch.Tensor, train: bool = False,
+                     shard=None) -> torch.Tensor:
         """[B, N, H, W, 3] -> float32 [B, N, feat_dim]."""
         b, n = images.shape[:2]
         flat = images.reshape((b * n,) + images.shape[2:])
@@ -128,27 +161,29 @@ class RelPoseGNN(nn.Module):
             first = [True]
 
             def run(x):
-                out = self.feature_extractor(x, True, first[0])
+                out = self.feature_extractor(x, True, first[0], shard)
                 first[0] = False
                 return out
 
             feats = torch.utils.checkpoint.checkpoint(run, flat,
                                                       use_reentrant=False)
         else:
-            feats = self.feature_extractor(flat, train)
+            feats = self.feature_extractor(flat, train, shard=shard)
         return feats.reshape(b, n, -1).float()
 
     def forward(self, images: torch.Tensor, adj: torch.Tensor,
                 train: bool = False,
-                generator: torch.Generator | None = None):
-        return self.from_embeddings(self.encode_nodes(images, train), adj,
-                                    train=train, generator=generator)
+                generator: torch.Generator | None = None, shard=None):
+        return self.from_embeddings(self.encode_nodes(images, train, shard),
+                                    adj, train=train, generator=generator,
+                                    shard=shard)
 
-    def _dropout(self, x: torch.Tensor,
-                 generator: torch.Generator | None) -> torch.Tensor:
+    def _dropout(self, x: torch.Tensor, generator: torch.Generator | None,
+                 shard=None) -> torch.Tensor:
         """flax `nn.Dropout`: keep with probability 1 - rate and scale
         what is kept by 1 / (1 - rate); the mask is drawn from
-        `generator`."""
+        `generator`, for the global batch of `shard`'s ranks (this rank's
+        rows of it kept) where a shard is given."""
         if generator is None:
             raise ValueError("dropout is active (train=True or "
                              "eval_dropout=True with droprate > 0) and "
@@ -156,19 +191,25 @@ class RelPoseGNN(nn.Module):
         keep_prob = 1.0 - self.cfg.droprate
         if keep_prob == 0.0:
             return torch.zeros_like(x)
-        keep = torch.rand(x.shape, generator=generator,
+        shape = x.shape if shard is None else (
+            (shard.size * x.shape[0],) + tuple(x.shape[1:]))
+        keep = torch.rand(shape, generator=generator,
                           device=generator.device) < keep_prob
+        if shard is not None:
+            keep = keep[shard.rows(x.shape[0])]
         return torch.where(keep.to(x.device), x / keep_prob,
                            torch.zeros_like(x))
 
     def from_embeddings(self, x: torch.Tensor, adj: torch.Tensor,
                         train: bool = False,
-                        generator: torch.Generator | None = None):
+                        generator: torch.Generator | None = None,
+                        shard=None):
         """[B, N, feat] node embeddings -> (pred_abs, pred_rel, adj, aux).
 
         aux["node_feats"] is the PRE-GNN x: the kNN graph is built from it
         and the eval anchor is its nearest neighbour of node 0.  Dropout
-        (train or eval_dropout) draws its masks from `generator`."""
+        (train or eval_dropout) draws its masks from `generator` (the
+        global batch's, over `shard`'s ranks)."""
         c = self.cfg
         if c.use_attention:
             x = self.att(x)
@@ -189,7 +230,7 @@ class RelPoseGNN(nn.Module):
             e = graph_ops.edge_pair_features_compact(x, edges[0], edges[1])
         else:
             e = graph_ops.edge_pair_features(x)
-        e = F.relu(dense(e, self.proj_edge))
+        e = F.relu(self._proj_edge(e))
 
         for r in range(c.gnn_recursion):
             layer = getattr(self, f"gnn{r % c.num_gnn_layers + 1}")
@@ -198,8 +239,10 @@ class RelPoseGNN(nn.Module):
             e = F.relu(e)
 
         if c.droprate > 0 and (train or c.eval_dropout):
-            x = self._dropout(x, generator)
-            e = self._dropout(e, generator)
+            drop = (self._dropout if shard is None
+                    else functools.partial(self._dropout, shard=shard))
+            x = drop(x, generator)
+            e = drop(e, generator)
 
         pred_abs = torch.cat([dense(x, self.fc_xyz),
                               dense(x, self.fc_wpqr)], dim=-1)

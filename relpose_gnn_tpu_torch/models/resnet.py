@@ -23,6 +23,15 @@ loads the `feature_extractor.*` part of a PoseNetX_R2 state dict.
   BIASED variance (`F.batch_norm(training=True)` would store the
   unbiased one, so it is given no buffers).  `num_batches_tracked`
   stays 0, as in the JAX exporter's state dicts.
+* Over several ranks (`shard`, parallel/sharding.py::DataShard) train
+  mode normalises with the GLOBAL batch's statistics, as flax's BatchNorm
+  does under a batch split over the data axis: two all-reduces a layer,
+  the per-channel sum and count for the mean, then the centred squares
+  for the (two-pass, biased) variance, through
+  `torch.distributed.nn.functional.all_reduce` so that the gradient flows
+  through them; every rank then folds the same statistics into its
+  running buffers.  `COUNTS["bn_all_reduce"]` counts these all-reduces.
+  (`nn.SyncBatchNorm` merges Welford partials, not this variance.)
 """
 
 from __future__ import annotations
@@ -36,6 +45,9 @@ import torch.nn.functional as F
 
 _BN_EPS = 1e-5
 
+# all-reduces issued by train-mode BatchNorm over several ranks
+COUNTS = {"bn_all_reduce": 0}
+
 
 def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     dt = x.dtype
@@ -47,23 +59,49 @@ def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
 _BN_MOMENTUM = 0.9
 
 
+def _global_stats(x32: torch.Tensor, group) -> tuple:
+    """(mean, biased variance, x32 - mean) per channel of NCHW `x32` over
+    every rank of `group`, two-pass: the sum and count, then the centred
+    squares."""
+    import torch.distributed.nn.functional as dist_fn
+    c = x32.shape[1]
+    count = torch.full((1,), x32.numel() // c, dtype=x32.dtype,
+                       device=x32.device)
+    sums = dist_fn.all_reduce(torch.cat([x32.sum(dim=(0, 2, 3)), count]),
+                              group=group)
+    n = sums[c]
+    mean = sums[:c] / n
+    d = x32 - mean[None, :, None, None]
+    var = dist_fn.all_reduce((d * d).sum(dim=(0, 2, 3)), group=group) / n
+    COUNTS["bn_all_reduce"] += 2
+    return mean, var, d
+
+
 def _bn(x: torch.Tensor, bn: nn.BatchNorm2d | None, train: bool = False,
-        update_stats: bool = True) -> torch.Tensor:
+        update_stats: bool = True, shard=None) -> torch.Tensor:
     """BatchNorm over NCHW `x`, computed in float32 and cast back to
-    x.dtype.  train: normalise with the batch's statistics and, if
-    `update_stats`, fold them into the running buffers; else normalise
-    with the running buffers."""
+    x.dtype.  train: normalise with the batch's statistics (the global
+    batch's over the ranks of `shard`) and, if `update_stats`, fold them
+    into the running buffers; else normalise with the running buffers."""
     if bn is None:
         return x
     x32 = x.float()
     if not train:
         return F.batch_norm(x32, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, training=False, eps=bn.eps).to(x.dtype)
-    y = F.batch_norm(x32, None, None, bn.weight, bn.bias, training=True,
-                     eps=bn.eps)
+    if shard is not None:
+        mean, var, d = _global_stats(x32, shard.group)
+        scale = bn.weight * torch.rsqrt(var + bn.eps)
+        y = d * scale[None, :, None, None] + bn.bias[None, :, None, None]
+        mean, var = mean.detach(), var.detach()
+    else:
+        y = F.batch_norm(x32, None, None, bn.weight, bn.bias, training=True,
+                         eps=bn.eps)
     if update_stats:
         with torch.no_grad():
-            var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
+            if shard is None:
+                var, mean = torch.var_mean(x32, dim=(0, 2, 3),
+                                           unbiased=False)
             bn.running_mean.mul_(_BN_MOMENTUM).add_(
                 mean, alpha=1 - _BN_MOMENTUM)
             bn.running_var.mul_(_BN_MOMENTUM).add_(
@@ -89,8 +127,9 @@ class BasicBlock(nn.Module):
             self.downsample = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                update_stats: bool = True) -> torch.Tensor:
-        bn = functools.partial(_bn, train=train, update_stats=update_stats)
+                update_stats: bool = True, shard=None) -> torch.Tensor:
+        bn = functools.partial(_bn, train=train, update_stats=update_stats,
+                               shard=shard)
         y = F.relu(bn(_conv(x, self.conv1), self.bn1))
         y = bn(_conv(y, self.conv2), self.bn2)
         residual = x
@@ -107,7 +146,8 @@ class ResNet(nn.Module):
     forward: [B, H, W, 3] NHWC -> float32 [B, feat_dim]; `train` picks
     batch statistics for BN and updates the running ones unless
     `update_stats` is False (a recomputation under
-    `torch.utils.checkpoint` passes False)."""
+    `torch.utils.checkpoint` passes False); `shard` (a DataShard) takes
+    them over the global batch of its ranks."""
 
     def __init__(self, stage_sizes: Sequence[int], feat_dim: int = 2048,
                  dtype: torch.dtype | None = None, folded: bool = False):
@@ -128,13 +168,14 @@ class ResNet(nn.Module):
         self.fc = nn.Linear(in_planes, feat_dim)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                update_stats: bool = True) -> torch.Tensor:
+                update_stats: bool = True, shard=None) -> torch.Tensor:
         x = x.to(self.dtype or x.dtype).permute(0, 3, 1, 2)  # NCHW view
-        x = F.relu(_bn(_conv(x, self.conv1), self.bn1, train, update_stats))
+        x = F.relu(_bn(_conv(x, self.conv1), self.bn1, train, update_stats,
+                       shard))
         # pads with -inf, like flax max_pool's padding=((1, 1), (1, 1))
         x = F.max_pool2d(x, 3, 2, 1)
         for stage in range(self.num_stages):
             for block in getattr(self, f"layer{stage + 1}"):
-                x = block(x, train, update_stats)
+                x = block(x, train, update_stats, shard)
         x = torch.mean(x.float(), dim=(2, 3))
         return F.linear(x, self.fc.weight, self.fc.bias)

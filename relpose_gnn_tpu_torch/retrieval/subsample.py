@@ -125,19 +125,24 @@ def _hash_bits(seed: int, rows: torch.Tensor, cols: torch.Tensor,
 
 
 def draw_survive_bits(seed: int, b: int, n: int,
-                      device: torch.device | str) -> torch.Tensor:
-    """Bernoulli(0.5) keep mask [b, n]: entry (i, r) depends on (seed, i,
-    r) only, so any prefix of columns is the same whatever `n` is."""
-    rows = torch.arange(b, dtype=torch.int64, device=device)[:, None]
+                      device: torch.device | str, row0: int = 0
+                      ) -> torch.Tensor:
+    """Bernoulli(0.5) keep mask [b, n] of query rows [row0, row0 + b):
+    entry (i, r) depends on (seed, row0 + i, r) only, so any prefix of
+    columns is the same whatever `n` is, and a batch split into row
+    blocks draws what the whole batch draws."""
+    rows = torch.arange(row0, row0 + b, dtype=torch.int64,
+                        device=device)[:, None]
     cols = torch.arange(n, dtype=torch.int64, device=device)[None, :]
     return (_hash_bits(seed, rows, cols, stream=1) >> 31) == 0
 
 
 def draw_starts(seed: int, b: int, sampling_period: int,
-                device: torch.device | str) -> torch.Tensor:
-    """Stride offsets [b] in [0, sampling_period) (32 hashed bits modulo
-    the period: the bias is under period / 2^32)."""
-    rows = torch.arange(b, dtype=torch.int64, device=device)
+                device: torch.device | str, row0: int = 0) -> torch.Tensor:
+    """Stride offsets [b] in [0, sampling_period) of query rows [row0,
+    row0 + b) (32 hashed bits modulo the period: the bias is under
+    period / 2^32)."""
+    rows = torch.arange(row0, row0 + b, dtype=torch.int64, device=device)
     zero = torch.zeros_like(rows)
     return _hash_bits(seed, rows, zero, stream=2) % sampling_period
 
@@ -185,8 +190,8 @@ def select_ranked_batch(order: torch.Tensor, inv_sorted: torch.Tensor,
 def subsample_neighbors_batch(seed: int, similarity: torch.Tensor,
                               invalid: torch.Tensor, k: int,
                               sampling_period: int,
-                              candidates: int | None = None
-                              ) -> torch.Tensor:
+                              candidates: int | None = None,
+                              row0: int = 0) -> torch.Tensor:
     """similarity [B, M] float32, invalid [M] or [B, M] bool -> neighbor
     indices int64 [B, k], on the similarity's device.
 
@@ -196,13 +201,15 @@ def subsample_neighbors_batch(seed: int, similarity: torch.Tensor,
     branches, the drop bits are keyed by rank position, and if any query
     cannot fill k selections inside its window the whole batch is
     recomputed with the full sort.  Results are identical for every
-    `candidates` value, None included, for the same seed."""
+    `candidates` value, None included, for the same seed.  The rows are
+    rows [row0, row0 + B) of a larger batch for the draws: a batch split
+    into blocks selects what the whole batch selects."""
     b, m = similarity.shape
     if candidates is not None and candidates < 1:
         raise ValueError(f"candidates must be >= 1 or None, got {candidates}")
     dev = similarity.device
     invalid = invalid.expand(b, m)
-    starts = draw_starts(seed, b, sampling_period, dev)
+    starts = draw_starts(seed, b, sampling_period, dev, row0)
     inf = torch.full_like(similarity, float("inf"))
     key = torch.where(invalid, inf, 1.0 - similarity)
 
@@ -210,8 +217,8 @@ def subsample_neighbors_batch(seed: int, similarity: torch.Tensor,
         order = ranked_indices(key, c)
         return select_ranked_batch(
             order, torch.gather(invalid, 1, order),
-            draw_survive_bits(seed, b, order.shape[1], dev), starts, k,
-            sampling_period)
+            draw_survive_bits(seed, b, order.shape[1], dev, row0), starts,
+            k, sampling_period)
 
     if candidates is None or candidates >= m:
         return select(None)[0]

@@ -49,15 +49,18 @@ def _epochs(logdir: str) -> list[int]:
 
 
 def save_checkpoint(logdir: str, state: TrainState, epoch: int,
-                    max_to_keep: int = 5) -> str:
+                    max_to_keep: int = 5, sd: dict | None = None) -> str:
     """Write the full train state under `logdir/<epoch>/` (through a
     temporary directory, renamed when complete) and keep the newest
-    `max_to_keep` epochs.  Returns the file's path."""
+    `max_to_keep` epochs.  `sd` is the state's `state_dict()` where the
+    caller has it already (gathered whole from the ranks of a model
+    axis).  Returns the file's path."""
     final = osp.join(logdir, str(epoch))
     tmp = final + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    torch.save(_to_cpu(state.state_dict()), osp.join(tmp, _FILE))
+    torch.save(_to_cpu(state.state_dict() if sd is None else sd),
+               osp.join(tmp, _FILE))
     shutil.rmtree(final, ignore_errors=True)
     os.replace(tmp, final)
     for old in _epochs(logdir)[:-max_to_keep]:

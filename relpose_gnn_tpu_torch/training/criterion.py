@@ -12,7 +12,13 @@ that the trainer hands to the same Adam as the model (train.py:203-211).
 Every function takes such a mapping, or any mapping of scalar tensors.
 
 The dense-graph form takes an [..., N, N] edge mask so that the mean is
-over the E real edges only, as torch's `nn.L1Loss` over E edges.
+over the E real edges only, as torch's `nn.L1Loss` over E edges.  Over
+several ranks (`shard`, parallel/sharding.py::DataShard) that mean is the
+global batch's: the JAX trainer divides the global sum by the global
+count, while DistributedDataParallel averages the ranks' gradients.  So
+the count is all-reduced and each rank's sum is scaled by the number of
+ranks: the mean of the ranks' losses is then the global loss, and their
+averaged gradients its gradient, whatever each rank's own count.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 from typing import Mapping
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from relpose_gnn_tpu_torch.ops.pose import calc_vo
@@ -44,15 +51,22 @@ def init_mapnet_criterion_params(sax: float = -1.0, saq: float = -4.0,
 
 
 def _masked_l1(pred: torch.Tensor, targ: torch.Tensor,
-               mask: torch.Tensor | None) -> torch.Tensor:
+               mask: torch.Tensor | None, shard=None) -> torch.Tensor:
     """Mean absolute error; with `mask` (broadcast over the feature axis)
-    the mean over unmasked positions only."""
+    the mean over unmasked positions only.  With `shard`, this rank's
+    share of the global mean, times the number of ranks (module
+    docstring); the ranks' rows are equal in number, so an unmasked mean
+    needs no change."""
     err = torch.abs(pred - targ)
     if mask is None:
         return torch.mean(err)
     w = mask.to(err.dtype)[..., None]
     total = torch.sum(err * w)
     count = torch.sum(w) * err.shape[-1]
+    if shard is not None:
+        count = count.detach().clone()
+        dist.all_reduce(count, group=shard.group)
+        total = total * shard.size
     return total / torch.clamp_min(count, 1.0)
 
 
@@ -61,12 +75,13 @@ def _weighted(params: Mapping, key: str, loss: torch.Tensor) -> torch.Tensor:
 
 
 def pose_net_criterion(params: Mapping, pred: torch.Tensor,
-                       targ: torch.Tensor, mask: torch.Tensor | None = None
-                       ) -> tuple:
+                       targ: torch.Tensor, mask: torch.Tensor | None = None,
+                       shard=None) -> tuple:
     """Homoscedastic L1 on [..., 6] = [t(3), logq(3)] poses.
-    Returns (total, t_loss, q_loss)."""
-    t_loss = _masked_l1(pred[..., :3], targ[..., :3], mask)
-    q_loss = _masked_l1(pred[..., 3:], targ[..., 3:], mask)
+    Returns (total, t_loss, q_loss); with `shard`, each rank's share
+    (their mean over the ranks is the global batch's value)."""
+    t_loss = _masked_l1(pred[..., :3], targ[..., :3], mask, shard)
+    q_loss = _masked_l1(pred[..., 3:], targ[..., 3:], mask, shard)
     loss = _weighted(params, "sax", t_loss) + _weighted(params, "saq",
                                                         q_loss)
     return loss, t_loss, q_loss

@@ -16,9 +16,24 @@ training feed, as in the JAX package:
     NativeConcatDataset`) where it builds, else the numpy memmaps, through
     `data_iterator` + `device_prefetch`; the log says which.
 `run_eval(serving_data_path=...)` reads the scene's raw training frames
-with the 7-Scenes / Cambridge loaders (the port's PNG decode).  `mesh_data > 0`
-raises NotImplementedError naming its ROADMAP.md queue (multi-GPU); the
-JAX package's compile cache is dropped (a TPU workaround).
+with the 7-Scenes / Cambridge loaders (the port's PNG decode).  The JAX
+package's compile cache is dropped (a TPU workaround).
+
+Over several GPUs (`mesh_data > 0`, one process per device started by
+`parallel/multihost.py::initialize`): a (data, model) mesh of
+`mesh_data` x `mesh_model` ranks; every rank reads the same seeded batch
+and keeps its rows of it (the effective batch must divide the data axis);
+training runs under DistributedDataParallel (training/trainer.py), its
+parameters and Adam's state whole on every rank; evals pad every batch to
+a multiple of the data axis, split it, gather the predictions on every
+rank and trim each batch to its own rows, so every rank reports the same
+medians.  With `mesh_model > 1` the GNN MLPs and `proj_edge` are split
+over the model axis (parallel/sharding.py::TensorParallel): each rank
+keeps its block of them and of their Adam moments, and a checkpoint is
+gathered whole first, so it has the single-device layout.  Rank 0 writes
+the metrics, the checkpoints and the exported predictions; every rank
+reads a checkpoint to resume.  The stores held on the device
+(`device_cache=True`) are single-device only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,6 +46,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from relpose_gnn_tpu_torch import resolve_device
 from relpose_gnn_tpu_torch.data import native_io
@@ -49,8 +65,16 @@ from relpose_gnn_tpu_torch.models.posenet import (RelPoseGNN,
                                                   RelPoseGNNConfig,
                                                   init_weights)
 from relpose_gnn_tpu_torch.ops import graph as graph_ops
+from relpose_gnn_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                                 axis_group, axis_size,
+                                                 create_mesh, in_mesh)
+from relpose_gnn_tpu_torch.parallel.multihost import (host_read,
+                                                      is_main_process)
+from relpose_gnn_tpu_torch.parallel.sharding import (TensorParallel,
+                                                     shard_batch)
 from relpose_gnn_tpu_torch.training import checkpoints as ckpt
 from relpose_gnn_tpu_torch.training.trainer import (TrainerConfig,
+                                                    check_fuse_ok,
                                                     create_train_state,
                                                     make_eval_step,
                                                     make_train_step)
@@ -92,8 +116,8 @@ class ExperimentConfig:
     backbone: str = "resnet34"
     feat_dim: int = 0                  # 0 = the preset's
     recover_nonfinite: bool = True     # roll back a non-finite epoch
-    mesh_data: int = 0                 # > 0: multi-GPU (not ported yet)
-    mesh_model: int = 1
+    mesh_data: int = 0                 # > 0: a (data, model) mesh of ranks
+    mesh_model: int = 1                # tensor-parallel axis size
     resume: bool = False               # continue from the latest checkpoint
     ckpt_dir: str = ""                 # default <logdir>/ckpt
     eval_fuse: str = "first"           # 'first' | 'mean' | 'median'
@@ -101,11 +125,24 @@ class ExperimentConfig:
     device_cache: bool = False         # stores held on the device
 
 
-def _refuse_unported(cfg: ExperimentConfig) -> None:
-    if cfg.mesh_data > 0:
-        raise NotImplementedError(
-            "mesh_data > 0 (training over several cards) is in ROADMAP.md, "
-            "'Modules to port', the multi-GPU slice")
+def _make_mesh(cfg: ExperimentConfig):
+    """The experiment's (data, model) mesh, None without `mesh_data`."""
+    if cfg.mesh_data <= 0:
+        return None
+    mesh = create_mesh(n_data=cfg.mesh_data, n_model=cfg.mesh_model)
+    if not in_mesh(mesh):
+        raise ValueError(
+            f"rank {dist.get_rank()} lies outside the mesh of "
+            f"{cfg.mesh_data} x {cfg.mesh_model} ranks: launch as many "
+            "processes as the mesh has places")
+    return mesh
+
+
+def _tensor_parallel(cfg: ExperimentConfig, mesh, model: RelPoseGNN):
+    """The model axis's split of `model` (whole), None without one."""
+    if mesh is None or cfg.mesh_model <= 1:
+        return None
+    return TensorParallel(model, mesh)
 
 
 def static_anchor_for(cfg: ExperimentConfig) -> int | None:
@@ -184,16 +221,52 @@ def pose_stats(cfg: ExperimentConfig):
 
 def evaluate_scene(eval_step, state, ds: PackedGraphDataset, batch_size: int,
                    mean_t, std_t, device: torch.device,
-                   cached: DeviceCachedFeed | None = None):
+                   cached: DeviceCachedFeed | None = None, mesh=None):
     """Batched whole-scene eval in store order, from the store held on the
-    device where `cached` is given, else through the host feed."""
+    device where `cached` is given, else through the host feed.
+
+    With `mesh`, EVERY batch whose size does not divide the data axis is
+    padded by repeating its last graph (when batch_size itself is not a
+    multiple, pad rows land mid-stream, not just at the tail), split over
+    the data axis, and each batch's gathered output is trimmed back to
+    ITS OWN valid count, as the JAX `evaluate_scene` does."""
+    if mesh is None:
+        if cached is not None:
+            batches = (b for b, _ in cached.eval_batches(batch_size))
+        else:
+            it = data_iterator(ds, batch_size=batch_size, shuffle=False,
+                               epochs=1, drop_remainder=False)
+            batches = device_prefetch(it, ds.mean, ds.std, device)
+        return evaluate_dataset(eval_step, state, batches, mean_t, std_t)
     if cached is not None:
-        batches = (b for b, _ in cached.eval_batches(batch_size))
-    else:
-        it = data_iterator(ds, batch_size=batch_size, shuffle=False,
-                           epochs=1, drop_remainder=False)
-        batches = device_prefetch(it, ds.mean, ds.std, device)
-    return evaluate_dataset(eval_step, state, batches, mean_t, std_t)
+        raise ValueError("device_cache is single-device only")
+    parts = axis_size(mesh, DATA_AXIS)
+    n_total = len(ds)
+    valid = [batch_size] * (n_total // batch_size)
+    if n_total % batch_size:
+        valid.append(n_total % batch_size)
+
+    def local(batches):
+        for batch in batches:
+            pad = (-len(batch["images"])) % parts
+            if pad:
+                batch = {k: np.concatenate([v, np.repeat(v[-1:], pad, 0)])
+                         for k, v in batch.items()}
+            yield shard_batch(mesh, batch)
+
+    it = data_iterator(ds, batch_size=batch_size, shuffle=False, epochs=1,
+                       drop_remainder=False)
+    preds, targs = [], []
+    for i, batch in enumerate(device_prefetch(local(it), ds.mean, ds.std,
+                                              device)):
+        out = eval_step(state, batch)
+        check_fuse_ok(out, "run_eval", axis_group(mesh, DATA_AXIS))
+        preds.append(host_read(out["pred"].float(), mesh)[:valid[i]])
+        targs.append(host_read(out["target"].float(), mesh)[:valid[i]])
+    preds, targs = np.concatenate(preds), np.concatenate(targs)
+    assert len(preds) == n_total, (len(preds), n_total)
+    return compute_pose_errors(preds, targs, pose_mean=mean_t,
+                               pose_std=std_t)
 
 
 def _trainer_config(cfg: ExperimentConfig, steps_per_epoch: int = 1000
@@ -207,13 +280,33 @@ def run_training(cfg: ExperimentConfig,
                  device: torch.device | str | None = None) -> dict:
     """Train per the experiment; returns {"state", "best"} (best median
     errors per test scene over the evaluated epochs)."""
-    _refuse_unported(cfg)
+    mesh = _make_mesh(cfg)
     device = resolve_device(device)
     logdir = Path(cfg.save_dir) / cfg.dataset / cfg.train_scene / cfg.exp_name
-    logger = get_logger(logfile=str(logdir / "logger.log"))
+    main = is_main_process()
+    logger = get_logger(logfile=str(logdir / "logger.log") if main else None)
     metrics_out = MetricsWriter(str(logdir / "metrics.jsonl"))
 
     train_ds, test_ds = load_datasets(cfg)
+    # a dataset smaller than the batch would yield no batch at all
+    batch_size = min(cfg.batch_size, max(1, len(train_ds)))
+    if batch_size < cfg.batch_size:
+        logger.warning("dataset has %d graphs < batch_size %d; clamping "
+                       "batch to %d", len(train_ds), cfg.batch_size,
+                       batch_size)
+    if mesh is not None:
+        # the EFFECTIVE batch (the clamp above may have shrunk it)
+        if batch_size % cfg.mesh_data != 0:
+            raise ValueError(
+                f"effective batch size {batch_size} (cfg {cfg.batch_size}, "
+                f"dataset {len(train_ds)}) must be divisible by "
+                f"mesh_data={cfg.mesh_data}")
+        if cfg.device_cache:
+            raise ValueError("device_cache is single-device only; mesh "
+                             "training keeps the per-rank host feed "
+                             "(data/device_cache.py)")
+        logger.info("mesh training: data=%d x model=%d",
+                    axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS))
     cached_train = cached_test = None
     train_feed = train_ds
     if cfg.device_cache:
@@ -234,12 +327,6 @@ def run_training(cfg: ExperimentConfig,
     else:
         logger.info("training feed: numpy memmaps (native graphio does "
                     "not build here)")
-    # a dataset smaller than the batch would yield no batch at all
-    batch_size = min(cfg.batch_size, max(1, len(train_ds)))
-    if batch_size < cfg.batch_size:
-        logger.warning("dataset has %d graphs < batch_size %d; clamping "
-                       "batch to %d", len(train_ds), cfg.batch_size,
-                       batch_size)
     tcfg = _trainer_config(cfg, max(1, len(train_ds) // batch_size))
     state = create_train_state(build_model(cfg, device), tcfg)
     if cfg.weights_filename and osp.isfile(cfg.weights_filename):
@@ -258,6 +345,10 @@ def run_training(cfg: ExperimentConfig,
         else:
             logger.info("resume requested but no checkpoint under %s; "
                         "starting fresh", ckdir)
+    # split over the model axis once the state is whole and loaded
+    tp = _tensor_parallel(cfg, mesh, state.model)
+    if tp is not None:
+        tp.apply(state)
 
     best = {s: {"median_t": 1e6, "median_q": 1e6} for s in test_ds}
     if start_epoch > 0:
@@ -265,7 +356,8 @@ def run_training(cfg: ExperimentConfig,
     try:
         return _training_loop(cfg, tcfg, logger, metrics_out, train_feed,
                               test_ds, batch_size, state, best, logdir,
-                              device, start_epoch, cached_train, cached_test)
+                              device, start_epoch, cached_train, cached_test,
+                              mesh, tp)
     finally:
         if train_feed is not train_ds:
             train_feed.close()
@@ -292,8 +384,10 @@ def _fold_best_from_metrics(path: str, best: dict) -> None:
 def _training_loop(cfg, tcfg, logger, metrics_out, train_feed, test_ds,
                    batch_size, state, best, logdir, device,
                    start_epoch: int = 0, cached_train=None,
-                   cached_test=None) -> dict:
-    train_step = make_train_step(tcfg)
+                   cached_test=None, mesh=None, tp=None) -> dict:
+    main = is_main_process()
+    train_step = (make_train_step(tcfg) if mesh is None
+                  else make_train_step(tcfg, mesh))
     eval_step = make_eval_step(ref_node=0,
                                static_anchor=static_anchor_for(cfg))
     mean_t, std_t = pose_stats(cfg)
@@ -306,6 +400,8 @@ def _training_loop(cfg, tcfg, logger, metrics_out, train_feed, test_ds,
         else:
             it = data_iterator(train_feed, batch_size=batch_size,
                                seed=cfg.seed + epoch, epochs=1)
+            if mesh is not None:   # every rank keeps its rows of the batch
+                it = (shard_batch(mesh, b) for b in it)
             batches = device_prefetch(it, train_feed.mean, train_feed.std,
                                       device)
         m = None
@@ -326,26 +422,33 @@ def _training_loop(cfg, tcfg, logger, metrics_out, train_feed, test_ds,
             state.load_state_dict(epoch_start)
             state.step = step
             continue
-        metrics_out.write(state.step, m, epoch=epoch)
+        if main:
+            metrics_out.write(state.step, m, epoch=epoch)
         logger.info("[epoch %04d] loss=%.4f t=%.4f q=%.4f", epoch,
                     float(m["loss"]), float(m["t_loss"]),
                     float(m["q_loss"]))
         if epoch in cfg.ckpt_epochs or (
                 cfg.ckpt_every and (epoch + 1) % cfg.ckpt_every == 0):
-            ckpt.save_checkpoint(cfg.ckpt_dir or str(logdir / "ckpt"),
-                                 state, epoch,
-                                 max_to_keep=(10_000 if cfg.ckpt_every
-                                              else 5))
+            whole = None if tp is None else tp.full_state_dict(state)
+            if main:   # the ranks' states are the same: one writer
+                ckpt.save_checkpoint(cfg.ckpt_dir or str(logdir / "ckpt"),
+                                     state, epoch,
+                                     max_to_keep=(10_000 if cfg.ckpt_every
+                                                  else 5), sd=whole)
+            if mesh is not None and dist.is_initialized():
+                dist.barrier()
         if epoch > cfg.eval_after_epoch:
             for s, ds in test_ds.items():
                 err = evaluate_scene(eval_step, state, ds, cfg.batch_size,
                                      mean_t, std_t, device,
-                                     cached=(cached_test or {}).get(s))
+                                     cached=(cached_test or {}).get(s),
+                                     mesh=mesh)
                 logger.info("[scene %s epoch %04d] %s", s, epoch, err)
-                metrics_out.write(state.step,
-                                  {"median_t": err.median_t,
-                                   "median_q": err.median_q},
-                                  epoch=epoch, scene=s)
+                if main:
+                    metrics_out.write(state.step,
+                                      {"median_t": err.median_t,
+                                       "median_q": err.median_q},
+                                      epoch=epoch, scene=s)
                 best[s]["median_t"] = min(best[s]["median_t"], err.median_t)
                 best[s]["median_q"] = min(best[s]["median_q"], err.median_q)
     return {"state": state, "best": best}
@@ -359,11 +462,13 @@ def run_eval(cfg: ExperimentConfig, weights: str | None = None,
     reference `.pth`/`.pth.tar`/`.tar` file, or a checkpoint directory of
     `save_checkpoint` (its latest epoch).  With `serving_data_path` (the
     raw dataset root) and stores that carry nbr_idx, the cached-embedding
-    serving path answers (evaluation/serving.py)."""
-    _refuse_unported(cfg)
+    serving path answers (evaluation/serving.py).  With `mesh_data > 0`
+    both paths split every batch over the mesh's data axis."""
+    mesh = _make_mesh(cfg)
     device = resolve_device(device)
     logdir = Path(cfg.save_dir) / cfg.dataset / cfg.test_scene / cfg.exp_name
-    logger = get_logger(logfile=str(logdir / "eval.log"))
+    main = is_main_process()
+    logger = get_logger(logfile=str(logdir / "eval.log") if main else None)
     test_ds = load_test_datasets(cfg)
     state = create_train_state(build_model(cfg, device), _trainer_config(cfg))
     weights = weights or cfg.weights_filename
@@ -388,20 +493,26 @@ def run_eval(cfg: ExperimentConfig, weights: str | None = None,
         raise ValueError("run_eval called with no weights; pass "
                          "allow_random_init to evaluate random-init weights")
 
+    tp = _tensor_parallel(cfg, mesh, state.model)
+    if tp is not None:
+        tp.cut(state.model)
     eval_step = make_eval_step(ref_node=0, fuse=cfg.eval_fuse,
                                static_anchor=static_anchor_for(cfg))
     mean_t, std_t = pose_stats(cfg)
+    if mesh is not None:
+        logger.info("mesh eval: data=%d x model=%d",
+                    axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS))
     results = {}
     for s, ds in test_ds.items():
         if serving_data_path is not None and ds.nbr_idx is not None:
             err = _evaluate_scene_serving(cfg, state.model, ds, s,
                                           serving_data_path, mean_t, std_t,
-                                          device)
+                                          device, mesh)
         else:
             err = evaluate_scene(eval_step, state, ds, cfg.batch_size,
-                                 mean_t, std_t, device)
+                                 mean_t, std_t, device, mesh=mesh)
         logger.info("[scene %s] %s", s, err)
-        if save_predictions:
+        if save_predictions and main:
             save_poses(str(logdir), s, err, rel_paths=ds.rel_paths)
         results[s] = err
     return results
@@ -447,9 +558,10 @@ def _raw_database(cfg: ExperimentConfig, scene: str, root: str, h: int):
 
 def _evaluate_scene_serving(cfg: ExperimentConfig, model: RelPoseGNN, ds,
                             scene: str, raw_data_path: str, mean_t, std_t,
-                            device: torch.device):
+                            device: torch.device, mesh=None):
     """Cached-embedding serving over one scene: the database is the
-    scene's train split, embedded once."""
+    scene's train split, embedded once (with `mesh`, the database's
+    embedding and every query batch split over the data axis)."""
     from relpose_gnn_tpu_torch.evaluation.serving import evaluate_scene_cached
 
     h, w = ds.meta["height"], ds.meta["width"]
@@ -458,12 +570,15 @@ def _evaluate_scene_serving(cfg: ExperimentConfig, model: RelPoseGNN, ds,
     if (cfg.serving_compact_edges and model.cfg.use_gnn
             and not model.cfg.compact_edges):
         # the compact edge-list GNN: the same math per edge, same weights
-        compact = RelPoseGNN(dataclasses.replace(model.cfg,
-                                                 compact_edges=True))
+        with torch.device(device):
+            compact = RelPoseGNN(dataclasses.replace(model.cfg,
+                                                     compact_edges=True))
+        if model.tp is not None:   # the same blocks of the split weights
+            _tensor_parallel(cfg, mesh, compact).cut(compact)
         compact.load_state_dict(model.state_dict(), strict=True)
         model = compact
     out = evaluate_scene_cached(model, ds, imgs, batch_size=cfg.batch_size,
                                 static_anchor=static_anchor_for(cfg),
-                                fuse=cfg.eval_fuse, device=device)
+                                fuse=cfg.eval_fuse, device=device, mesh=mesh)
     return compute_pose_errors(out["pred"], out["target"],
                                pose_mean=mean_t, pose_std=std_t)

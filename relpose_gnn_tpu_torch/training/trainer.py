@@ -20,6 +20,23 @@ is the same work in eager PyTorch on the card:
     uninterrupted one did.  The draws are the port's own; `jax.random`'s
     cannot be reproduced.
 
+Over several GPUs (`make_train_step(cfg, mesh)`, parallel/mesh.py), each
+rank takes its rows of the global batch and the step computes what one
+process computes on the whole batch, as the JAX trainer does under a batch
+split over the data axis:
+
+  * the forward and the loss run as one module (model and criterion
+    scalars, `_StepLoss`) wrapped in DistributedDataParallel over the data
+    group, which all-reduces the gradients and divides by the number of
+    ranks (exact at one rank); Adam's state is whole on every rank and
+    takes the same update there;
+  * train-mode BatchNorm normalises with the global batch's statistics
+    (models/resnet.py), dropout keeps this rank's rows of the global
+    batch's masks (models/posenet.py), and the masked L1 divides by the
+    global count (training/criterion.py), through the step's
+    `parallel/sharding.py::DataShard`;
+  * the metrics are the global batch's, the same on every rank.
+
 Quirk (train.py:238-247): the reference's train-time edge dropout masks only
 `data.edge_attr`, which the production model never reads: a no-op.
 `edge_dropout_effective=False` (default) keeps that; True applies the mask
@@ -31,10 +48,13 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from relpose_gnn_tpu_torch.models.posenet import RelPoseGNN
 from relpose_gnn_tpu_torch.ops import graph as graph_ops
+from relpose_gnn_tpu_torch.parallel.mesh import DATA_AXIS, axis_group
+from relpose_gnn_tpu_torch.parallel.sharding import data_shard
 from relpose_gnn_tpu_torch.retrieval.subsample import fold_in
 from relpose_gnn_tpu_torch.training import criterion as crit
 
@@ -233,14 +253,18 @@ def step_generators(seed: int, step: int, device: torch.device
 
 
 def loss_fn(state: TrainState, batch: dict, generator: torch.Generator,
-            cfg: TrainerConfig) -> tuple[torch.Tensor, dict]:
+            cfg: TrainerConfig, shard=None) -> tuple[torch.Tensor, dict]:
     """Training forward + homoscedastic relative-pose loss
-    (train.py:255-264).  Updates the BN running statistics."""
+    (train.py:255-264).  Updates the BN running statistics.  With
+    `shard` (a DataShard) the batch is this rank's rows and the loss this
+    rank's share (training/criterion.py); the metrics are then the global
+    batch's."""
     pred_abs, pred_rel, adj, _ = state.model(batch["images"], batch["adj"],
-                                             train=True, generator=generator)
+                                             train=True, generator=generator,
+                                             shard=shard)
     target_rel = graph_ops.relative_pose_targets(batch["poses"])
     loss_r, t_loss, q_loss = crit.pose_net_criterion(
-        state.criterion_R, pred_rel, target_rel, mask=adj)
+        state.criterion_R, pred_rel, target_rel, mask=adj, shard=shard)
     if cfg.use_vo_loss:
         total = loss_r
     else:
@@ -253,27 +277,86 @@ def loss_fn(state: TrainState, batch: dict, generator: torch.Generator,
     metrics = {"loss": total, "t_loss": t_loss, "q_loss": q_loss,
                "sax_R": state.criterion_R["sax"],
                "saq_R": state.criterion_R["saq"]}
-    return total, {k: v.detach().clone() for k, v in metrics.items()}
+    metrics = {k: v.detach().clone() for k, v in metrics.items()}
+    if shard is not None:
+        # the ranks' shares average to the global batch's values
+        shares = torch.stack([metrics[k] for k in ("loss", "t_loss",
+                                                   "q_loss")])
+        dist.all_reduce(shares, group=shard.group)
+        shares = shares / shard.size
+        metrics.update(loss=shares[0], t_loss=shares[1], q_loss=shares[2])
+    return total, metrics
 
 
-def make_train_step(cfg: TrainerConfig):
+class _StepLoss(nn.Module):
+    """The train step's forward and loss over every parameter the
+    optimizer updates (the model and both criterion sets): the module
+    DistributedDataParallel wraps."""
+
+    def __init__(self, state: TrainState, cfg: TrainerConfig):
+        super().__init__()
+        self.model = state.model
+        self.criterion = state.criterion
+        self.criterion_R = state.criterion_R
+        self.cfg = cfg
+
+    def forward(self, batch: dict, generator: torch.Generator, shard):
+        # loss_fn reads .model, .criterion and .criterion_R, which this
+        # module holds as a TrainState does
+        return loss_fn(self, batch, generator, self.cfg, shard)
+
+
+def _data_parallel(state: TrainState, cfg: TrainerConfig, mesh):
+    """`_StepLoss` under DistributedDataParallel over the mesh's data
+    group.  BN buffers are not broadcast each step: every rank folds the
+    same global statistics into its own.  The absolute head and its
+    criterion get no gradient under the relative-pose loss, so unused
+    parameters are looked for."""
+    from torch.nn.parallel import DistributedDataParallel
+    return DistributedDataParallel(
+        _StepLoss(state, cfg), process_group=axis_group(mesh, DATA_AXIS),
+        broadcast_buffers=False, find_unused_parameters=True)
+
+
+def make_train_step(cfg: TrainerConfig, mesh=None):
     """train_step(state, batch, seed) -> metrics (tensors on the device,
     not synchronised): forward, loss, backward, optimizer, step + 1.
     `batch` holds normalised float images [B, N, H, W, 3], poses
-    [B, N, 6] and a bool adjacency [B, N, N] on the model's device."""
+    [B, N, 6] and a bool adjacency [B, N, N] on the model's device.
+
+    With `mesh` (parallel/mesh.py) the batch is this rank's rows of the
+    global batch, split over the data axis, and the gradients are
+    all-reduced by DistributedDataParallel (module docstring); a data
+    axis of one rank runs the single-device computation under it.  A
+    mesh whose data axis has no process group (a `LocalMesh`: no
+    `init_process_group`) runs the single-device step as it is."""
+    shard = data_shard(mesh)
+    if mesh is not None and axis_group(mesh, DATA_AXIS) is None:
+        mesh = None
+    wrapped = {}
 
     def train_step(state: TrainState, batch: dict, seed: int) -> dict:
         device = batch["images"].device
         drop_gen, edge_gen = step_generators(seed, state.step, device)
         if cfg.edge_dropout_effective:
             adj = batch["adj"]
+            b = adj.shape[0]
             keep = graph_ops.edge_dropout_mask(
                 edge_gen, adj.shape[-1], cfg.edge_keep_factor,
-                batch_shape=adj.shape[:-2])
+                batch_shape=(b if shard is None else shard.size * b,)
+                + tuple(adj.shape[1:-2]))
+            if shard is not None:   # this rank's rows of the global masks
+                keep = keep[shard.rows(b)]
             batch = dict(batch, adj=adj & graph_ops.ensure_nonempty(keep))
         for p in state.optimizer.params:
             p.grad = None
-        total, metrics = loss_fn(state, batch, drop_gen, cfg)
+        if mesh is None:
+            total, metrics = loss_fn(state, batch, drop_gen, cfg)
+        else:
+            ddp = wrapped.get(id(state))
+            if ddp is None:
+                ddp = wrapped[id(state)] = _data_parallel(state, cfg, mesh)
+            total, metrics = ddp(batch, drop_gen, shard)
         total.backward()
         state.optimizer.step()
         state.step += 1
@@ -314,9 +397,15 @@ def fuse_pose_estimates(est: torch.Tensor, mask: torch.Tensor,
     return 0.5 * (take(lo) + take(hi))
 
 
-def check_fuse_ok(out: dict, where: str) -> None:
+def check_fuse_ok(out: dict, where: str, group=None) -> None:
     """Raise on an eval step's false `fuse_ok` flag (see
-    fuse_pose_estimates' precondition); no-op without the flag."""
+    fuse_pose_estimates' precondition); no-op without the flag.  With a
+    process `group` (a batch split over its ranks) the flags of every
+    rank decide together, so all raise or none does."""
+    if "fuse_ok" in out and group is not None:
+        bad = (~out["fuse_ok"]).to(torch.int32).reshape(1)
+        dist.all_reduce(bad, group=group)
+        out = dict(out, fuse_ok=bad[0] == 0)
     if "fuse_ok" in out and not bool(out["fuse_ok"]):
         raise ValueError(
             f"{where}: a query row has ZERO incoming edges in the fuse "

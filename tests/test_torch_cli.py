@@ -2,15 +2,20 @@
 against the JAX package's `cli/train.py` and `cli/test.py`, on the CPU, on
 tiny packed stores (4-node graphs at 32x40, resnet18, dims 32).
 
-  * `parse_args` gives the JAX CLI's namespace for the same argv, apart
-    from the port's own `--device`.  The JAX CLIs are loaded by file path;
-    they import only argparse and sys at module level.
+  * `parse_args` of the port's train, test, serve, build_graphs and
+    parity gives the JAX CLI's namespace for the same argv, apart from the
+    port's own `--device`, the multi-process flags included.  The JAX CLIs
+    are loaded by file path; they import only argparse, sys and numpy at
+    module level.
   * `main` trains (one epoch, a checkpoint after it) and evaluates that
     checkpoint; the test entry's medians equal `run_eval` on the same
     weights exactly (the same float32 CPU computation), and the saved
     weights load into the port's model with strict=True.
   * Every flag whose work the port does not have yet raises
-    NotImplementedError before anything runs.
+    NotImplementedError before anything runs, and the multi-process flags
+    refuse what cannot run (a process id outside the job, processes
+    without a coordinator, a mesh larger than the world) with a
+    ValueError before anything runs.
 """
 
 import contextlib
@@ -23,7 +28,10 @@ import numpy as np
 import pytest
 import torch
 
+from relpose_gnn_tpu_torch.cli import build_graphs as cli_build_graphs
+from relpose_gnn_tpu_torch.cli import parity as cli_parity
 from relpose_gnn_tpu_torch.cli import refuse_unported
+from relpose_gnn_tpu_torch.cli import serve as cli_serve
 from relpose_gnn_tpu_torch.cli import test as cli_test
 from relpose_gnn_tpu_torch.cli import train as cli_train
 from relpose_gnn_tpu_torch.data.packed import PackedGraphWriter
@@ -68,6 +76,10 @@ TRAIN_ARGVS = [
      "--max-epoch", "5", "--batch-size", "2", "--seq-len", "4",
      "--droprate", "0.1", "--srq", "-3", "--saq", "-1", "--gnn-recursion",
      "1", "--eval-after-epoch", "0", "--weights-filename", "w.pth.tar"],
+    ["--train-data-dir", "a", "--test-data-dir", "b", "--mesh-data", "4",
+     "--mesh-model", "1", "--coordinator", "host0:29500",
+     "--num-processes", "4", "--process-id", "3", "--local-device-count",
+     "1"],
 ]
 TEST_ARGVS = [
     ["--test-data-dir", "a", "--weights-filename", "w"],
@@ -79,6 +91,39 @@ TEST_ARGVS = [
      "--backbone", "resnet18", "--feat-dim", "32", "--dtype", "float32",
      "--knn", "2", "--gnn-recursion", "3", "--seed", "5", "--model-name",
      "R1", "--mesh-model", "2"],
+    ["--test-data-dir", "a", "--weights-filename", "w", "--mesh-data", "2"],
+]
+SERVE_ARGVS = [
+    ["--scene", "chess", "--data-path", "raw"],
+    ["--scene", "chess", "fire", "--data-path", "raw", "--dataset",
+     "7Scenes", "--weights", "w.pth.tar", "--netvlad-checkpoint", "n.tar",
+     "--stats-path", "stats", "--backbone", "resnet18", "--feat-dim", "32",
+     "--seq-len", "4", "--sampling-period", "3", "--image-size", "32",
+     "--batch-size", "4", "--deterministic", "--no-fold-bn", "--dtype",
+     "float32", "--out", "o.npz", "--seed", "2", "--retrieval-hw", "24",
+     "32", "--retrieval-mode", "shared-trunk", "--rank-dtype", "bfloat16",
+     "--pipeline-depth", "3", "--netvlad-clusters", "4", "--capacity", "64",
+     "--save-db", "s.npz", "--load-db", "l.npz"],
+    ["--scene", "KingsCollege", "--data-path", "raw", "--dataset",
+     "Cambridge", "--pose-stat-path", "p.txt", "--mesh-data", "2",
+     "--coordinator", "host0:29500", "--num-processes", "2", "--process-id",
+     "1", "--local-device-count", "1", "--trace-dir", "t"],
+]
+BUILD_GRAPHS_ARGVS = [
+    ["chess", "train", "--data-path", "raw", "--graph-data-path", "g"],
+    ["ShopFacade", "test", "--dataset", "Cambridge", "--data-path", "raw",
+     "--graph-data-path", "g", "--stats-path", "s", "--pose-stat-path",
+     "p.txt", "--seq-len", "4", "--sp", "3", "--sampling-method", "RAND",
+     "--cross-connect", "--netvlad-checkpoint", "n.tar", "--retrieval",
+     "netvlad", "--seed", "1"],
+]
+PARITY_ARGVS = [
+    ["--weights", "w.pth.tar", "--graph-data-dir", "g"],
+    ["--weights", "w.pth.tar", "--graph-data-dir", "g", "--dataset",
+     "Cambridge", "--scenes", "ShopFacade,KingsCollege", "--dataset-dir",
+     "raw", "--pose-stat-path", "p.txt", "--backbone", "resnet18",
+     "--seq-len", "4", "--knn", "2", "--img-height", "32", "--batch-size",
+     "4", "--dtype", "float32", "--save-dir", "out"],
 ]
 
 
@@ -96,6 +141,17 @@ def test_test_parse_args_equals_jax(argv):
     got = vars(cli_test.parse_args(argv))
     assert got.pop("device") is None
     assert got == vars(_jax_cli("test").parse_args(argv))
+
+
+@pytest.mark.parametrize("name,module,argv", [
+    *(("serve", cli_serve, a) for a in SERVE_ARGVS),
+    *(("build_graphs", cli_build_graphs, a) for a in BUILD_GRAPHS_ARGVS),
+    *(("parity", cli_parity, a) for a in PARITY_ARGVS),
+])
+def test_other_entries_parse_args_equal_jax(name, module, argv):
+    got = vars(module.parse_args(argv))
+    assert got.pop("device") is None
+    assert got == vars(_jax_cli(name).parse_args(argv))
 
 
 @pytest.fixture(scope="module")
@@ -190,36 +246,50 @@ def _orbax_dir(tmp_path):
     return str(d)
 
 
-@pytest.mark.parametrize("extra,slice_", [
-    (["--coordinator", "localhost:1234"], "slice 7"),
-    (["--num-processes", "2"], "slice 7"),
-    (["--mesh-data", "2"], "slice 7"),
-    (["--backbone", "vit"], "slice 8"),
-    # the id is the case's name from when the refusal named a slice
-    pytest.param(["--weights-filename", "ORBAX"], "save_torch_checkpoint",
-                 id="extra4-slice 6c"),
+# the multi-process flags run; what they cannot run is refused with a
+# ValueError, and what the port does not have with a NotImplementedError
+@pytest.mark.parametrize("extra,error,match", [
+    pytest.param(["--coordinator", "localhost:1234", "--num-processes",
+                  "2", "--process-id", "2"], ValueError, "outside",
+                 id="process-id-outside"),
+    pytest.param(["--num-processes", "2"], ValueError, "coordinator",
+                 id="no-coordinator"),
+    pytest.param(["--mesh-data", "2"], ValueError, "needs 2 ranks",
+                 id="mesh-over-world"),
+    pytest.param(["--backbone", "vit"], NotImplementedError, "slice 8",
+                 id="vit"),
+    pytest.param(["--weights-filename", "ORBAX"], NotImplementedError,
+                 "save_torch_checkpoint", id="orbax"),
+    pytest.param(["--mesh-data", "1", "--mesh-model", "2"], ValueError,
+                 "needs 2 ranks", id="tensor-parallel"),
+    pytest.param(["--local-device-count", "2"], ValueError,
+                 "launch 2 processes", id="local-device-count"),
 ])
-def test_train_entry_refuses_unported_flags(stores, tmp_path, extra, slice_):
+def test_train_entry_refuses_unported_flags(stores, tmp_path, extra, error,
+                                            match):
     extra = [_orbax_dir(tmp_path) if a == "ORBAX" else a for a in extra]
     save = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match=slice_):
+    with pytest.raises(error, match=match):
         cli_train.main(["--train-data-dir", stores, "--test-data-dir",
                         stores, "--save-dir", str(save), "--device", "cpu",
                         *extra])
     assert not save.exists()
 
 
-@pytest.mark.parametrize("extra,slice_", [
-    (["--mesh-data", "2"], "slice 7"),
-    (["--backbone", "vit"], "slice 8"),
-    pytest.param(["--weights-filename", "ORBAX"], "save_torch_checkpoint",
-                 id="extra2-slice 6c"),
+@pytest.mark.parametrize("extra,error,match", [
+    pytest.param(["--mesh-data", "2"], ValueError, "needs 2 ranks",
+                 id="mesh-over-world"),
+    pytest.param(["--backbone", "vit"], NotImplementedError, "slice 8",
+                 id="vit"),
+    pytest.param(["--weights-filename", "ORBAX"], NotImplementedError,
+                 "save_torch_checkpoint", id="orbax"),
 ])
-def test_test_entry_refuses_unported_flags(stores, tmp_path, extra, slice_):
+def test_test_entry_refuses_unported_flags(stores, tmp_path, extra, error,
+                                           match):
     extra = [_orbax_dir(tmp_path) if a == "ORBAX" else a for a in extra]
     argv = ["--test-data-dir", stores, "--save-dir", str(tmp_path / "out"),
             "--device", "cpu", "--weights-filename", "w.pth.tar", *extra]
-    with pytest.raises(NotImplementedError, match=slice_):
+    with pytest.raises(error, match=match):
         cli_test.main(argv)
     assert not (tmp_path / "out").exists()
 

@@ -197,14 +197,27 @@ def test_medians_match_jax(served, which):
         assert abs(got[s].median_q - want[s].median_q) < 1e-2
 
 
-@pytest.mark.parametrize("flag,slice_", [
-    (["--mesh-data", "2"], "slice 7"),
-    (["--coordinator", "localhost:1234"], "slice 7"),
-    (["--num-processes", "2"], "slice 7"),
-    (["--local-device-count", "2"], "slice 7"),
-    (["--trace-dir", "trace"], "slice 9"),
+# the multi-process flags run; what they cannot run is refused with a
+# ValueError (or SystemExit) before anything runs, and what the port does
+# not have with a NotImplementedError
+@pytest.mark.parametrize("flag,error,match", [
+    pytest.param(["--mesh-data", "2"], ValueError, "needs 2 ranks",
+                 id="mesh-over-world"),
+    pytest.param(["--coordinator", "localhost:1234", "--num-processes",
+                  "2", "--process-id", "5"], ValueError, "outside",
+                 id="process-id-outside"),
+    pytest.param(["--num-processes", "2"], ValueError, "coordinator",
+                 id="no-coordinator"),
+    pytest.param(["--local-device-count", "2"], ValueError,
+                 "launch 2 processes", id="local-device-count"),
+    pytest.param(["--trace-dir", "trace"], NotImplementedError, "slice 9",
+                 id="trace-dir"),
+    pytest.param(["--mesh-data", "2", "--batch-size", "3"], ValueError,
+                 "must divide", id="batch-over-mesh"),
+    pytest.param(["--mesh-data", "1", "--scene", "chess", "fire"], SystemExit,
+                 "ONE scene", id="mesh-several-scenes"),
 ])
-def test_unported_flags_are_refused(tmp_path, flag, slice_):
-    with pytest.raises(NotImplementedError, match=slice_):
+def test_unported_flags_are_refused(tmp_path, flag, error, match):
+    with pytest.raises(error, match=match):
         port_cli.main(["--scene", "chess", "--data-path", str(tmp_path),
                        "--device", "cpu", *flag])

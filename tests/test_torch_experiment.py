@@ -171,7 +171,8 @@ def test_config_fields_roots_and_anchors_match_jax():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(mesh_data=2), "multi-GPU"),
+    pytest.param(dict(backbone="vit"), "the rest of the model zoo",
+                 id="vit"),
 ])
 def test_later_slices_raise_naming_the_roadmap(stores, tmp_path, kw, what):
     root, _ = stores

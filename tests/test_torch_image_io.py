@@ -15,7 +15,16 @@ PIL, which the JAX package decodes and resizes with.
     bit: the loaders' 640x480 -> 341x256 and 1920x1080 -> 455x256,
     `crop_by_intrinsic`'s 7-Scenes ratio (640x480 -> 713x534 and back),
     the NetVLAD input 192x256, upscales and odd small sizes, RGB and gray;
-  * `encode_png` round-trips through PIL.
+  * `encode_png` round-trips through PIL;
+  * depth frames: `decode_gray_png` equals `np.asarray(Image.open(p))`
+    on 16-bit and 8-bit gray PNGs (every filter pattern, several IDAT
+    chunks, PNGs PIL writes), `resize_bilinear16` equals PIL's BILINEAR
+    resize of mode I;16 at the sizes above, and the port's
+    `SevenScenes.load_depth` gives the JAX loader's result (PIL inside)
+    on the same files: the depth in metres with 65535 -> 0 after the
+    resize, None where PIL's `Image.open` fails, an exception where PIL
+    fails on the pixels, over the damaged files of the colour rule made
+    16-bit.
 
 Tolerance: none, every comparison is exact.
 """
@@ -212,15 +221,19 @@ def test_refused_forms_raise(tmp_path, case):
             T.load_rgb(str(path))
 
 
-def _corrupt_variants():
+def _corrupt_variants(pixels=None, colour=2, depth=8):
     """{name: PNG bytes} of damaged files, each with the pixels of
-    `_pixels(2, "full", 0)` where it still decodes: PIL checks the CRCs of
-    the chunks before the image data only, reads the IDAT chunks that
+    `_pixels(2, "full", 0)` (or `pixels`, uint8 [H, W, bytes a pixel],
+    of `colour` at `depth`) where it still decodes: PIL checks the CRCs
+    of the chunks before the image data only, reads the IDAT chunks that
     follow in a row, and stops inflating at the image's last row."""
-    pixels = _pixels(2, "full", 0)
-    rows = _filter_rows(pixels, [1] * 11)
+    if pixels is None:
+        pixels = _pixels(2, "full", 0)
+    h, w = pixels.shape[:2]
+    rows = _filter_rows(pixels, [1] * h)
     z = zlib.compress(rows)
-    ihdr = _chunk(b"IHDR", struct.pack(">IIBBBBB", 9, 11, 8, 2, 0, 0, 0))
+    ihdr = _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0,
+                                       0, 0))
 
     def chunk(ctype, payload, crc=None):
         good = _chunk(ctype, payload)
@@ -346,6 +359,16 @@ def test_encode_round_trips_through_pil(tmp_path, shape):
     np.testing.assert_array_equal(image_io.decode_png(path), img)
 
 
+def test_encode_16bit_gray_round_trips_through_pil(tmp_path):
+    d, _ = _depth16(11, 48, 64)
+    path = str(tmp_path / "d.png")
+    image_io.encode_png(path, d)
+    with Image.open(path) as im:
+        assert im.mode == "I;16"
+        np.testing.assert_array_equal(np.asarray(im), d)
+    np.testing.assert_array_equal(image_io.decode_gray_png(path), d)
+
+
 def test_bad_arguments_raise():
     for bad in (np.zeros((4, 4, 3), np.float32), np.zeros((4, 4), np.uint8),
                 np.zeros((0, 4, 3), np.uint8)):
@@ -382,3 +405,120 @@ def test_counts_frames_and_seconds(tmp_path):
     assert (n_dec, n_res) == (1, 2) and t_dec > 0 and t_res > 0
     image_io.reset_counts()
     assert image_io.COUNTS == {"decode": [0, 0.0], "resize": [0, 0.0]}
+
+
+# ---------------------------------------------------------------------------
+# depth frames: 16-bit (and 8-bit) gray
+# ---------------------------------------------------------------------------
+
+
+def _depth16(seed, h=11, w=9):
+    """uint16 [h, w] depths in mm, some invalid (65535), and its PNG
+    bytes a pixel (big-endian) as uint8 [h, w, 2]."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 8000, (h, w)).astype(np.uint16)
+    d[rng.random((h, w)) < 0.1] = 65535
+    return d, d.astype(">u2").view(np.uint8).reshape(h, w, 2)
+
+
+@pytest.mark.parametrize("pattern", list(PATTERNS))
+@pytest.mark.parametrize("depth", [16, 8])
+def test_decode_gray_equals_pil_for_every_filter_pattern(tmp_path, depth,
+                                                         pattern):
+    if depth == 16:
+        want, pixels = _depth16(3)
+    else:
+        pixels = _pixels(0, "full", 3)
+        want = pixels[..., 0]
+    path = str(tmp_path / "d.png")
+    write_png(path, pixels, PATTERNS[pattern](pixels.shape[0]), 0,
+              idat_splits=3, depth=depth)
+    got = image_io.decode_gray_png(path)
+    with Image.open(path) as im:
+        assert im.mode == ("I;16" if depth == 16 else "L")
+        pil = np.asarray(im)
+    assert got.dtype == pil.dtype and got.shape == (11, 9)
+    np.testing.assert_array_equal(got, pil)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(480, 640), (37, 29), (1, 5)])
+def test_decode_gray_equals_pil_on_pngs_pil_writes(tmp_path, shape):
+    d = np.random.default_rng(shape[0]).integers(0, 65536, shape).astype(
+        np.uint16)
+    path = str(tmp_path / "d.png")
+    Image.fromarray(d).save(path)
+    np.testing.assert_array_equal(image_io.decode_gray_png(path), d)
+
+
+def test_decode_gray_refuses_colour_and_reads_none_where_missing(tmp_path):
+    path = str(tmp_path / "c.png")
+    write_png(path, _pixels(2, "full", 0), [0] * 11, 2)
+    with pytest.raises(ValueError, match="refused here"):
+        image_io.decode_gray_png(path)
+    assert image_io.decode_gray_png(str(tmp_path / "missing.png")) is None
+
+
+@pytest.mark.parametrize("src,size", RESIZES)
+def test_resize16_equals_pil_bilinear(src, size):
+    rng = np.random.default_rng(src[0] * 7 + size[0])
+    img = rng.integers(0, 65536, src).astype(np.uint16)
+    img[rng.random(src) < 0.1] = 65535
+    want = np.asarray(Image.fromarray(img).resize(size, Image.BILINEAR))
+    got = image_io.resize_bilinear16(img, size)
+    assert got.dtype == np.uint16 and got.shape == (size[1], size[0])
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="resize_bilinear16 takes"):
+        image_io.resize_bilinear16(img.astype(np.uint8), size)
+
+
+def _load_depth(module, path, image_size):
+    """`SevenScenes.load_depth` of the JAX package or the port on one
+    file: ("ok", depth), ("none",) or ("raises",)."""
+    import types
+    ds = types.SimpleNamespace(d_imgs=[path], image_size=image_size)
+    try:
+        out = module.SevenScenes.load_depth(ds, 0)
+    except Exception:  # noqa: BLE001 - either package's failure
+        return ("raises",)
+    return ("none",) if out is None else ("ok", out)
+
+
+@pytest.mark.parametrize("image_size", [256, 6])
+@pytest.mark.parametrize("kind", ["16-bit", "8-bit"])
+def test_load_depth_equals_the_jax_loader(tmp_path, kind, image_size):
+    """640x480 -> 341x256 (the loaders' size) and a downscale to 6 rows;
+    the 65535 rule after the resize."""
+    from relpose_gnn_tpu.data import seven_scenes as jax_7s
+    from relpose_gnn_tpu_torch.data import seven_scenes
+    rng = np.random.default_rng(5)
+    d = rng.integers(500, 4000, (480, 640)).astype(np.uint16)
+    d[100:300, 200:260] = 65535
+    if kind == "8-bit":
+        d = (d // 16).astype(np.uint8)
+    path = str(tmp_path / "frame-000000.depth.png")
+    Image.fromarray(d).save(path)
+    got = _load_depth(seven_scenes, path, image_size)
+    want = _load_depth(jax_7s, path, image_size)
+    assert got[0] == want[0] == "ok"
+    assert got[1].dtype == want[1].dtype == np.float32
+    np.testing.assert_array_equal(got[1], want[1])
+    if kind == "16-bit" and image_size == 256:
+        assert got[1].shape == (256, 341) and (got[1] == 0).any()
+
+
+@pytest.mark.parametrize("case", list(_corrupt_variants()))
+def test_load_depth_follows_pil_on_damaged_16bit_files(tmp_path, case):
+    """The JAX depth loader gives None where PIL's `Image.open` fails and
+    raises where PIL fails reading the pixels; the port does the same on
+    the same damaged 16-bit files, and gives PIL's depths on the rest."""
+    from relpose_gnn_tpu.data import seven_scenes as jax_7s
+    from relpose_gnn_tpu_torch.data import seven_scenes
+    _, pixels = _depth16(7)
+    path = str(tmp_path / "damaged.depth.png")
+    Path(path).write_bytes(_corrupt_variants(pixels, 0, 16)[case])
+    got = _load_depth(seven_scenes, path, 6)
+    want = _load_depth(jax_7s, path, 6)
+    assert got[0] == want[0], (got[0], want[0])
+    if want[0] == "ok":
+        np.testing.assert_array_equal(got[1], want[1])

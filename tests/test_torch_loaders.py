@@ -215,8 +215,10 @@ class _Fixed:
 
 
 def test_pil_is_named_where_it_is_missing(monkeypatch, tmp_path):
-    """Without PIL the colour path decodes and resizes with the port's own
-    library; only the 16-bit depth frames need PIL and name it."""
+    """Without PIL the colour and the depth paths decode and resize with
+    the port's own library (the depth frames since the 16-bit decoder;
+    before it, they needed PIL and named it): the same results as with
+    PIL importable."""
     import builtins
     import types
 
@@ -226,8 +228,13 @@ def test_pil_is_named_where_it_is_missing(monkeypatch, tmp_path):
         np.uint8)
     path = str(tmp_path / "f.png")
     image_io.encode_png(path, frame)
+    depth_path = str(tmp_path / "d.png")
+    Image.fromarray((frame[..., 0].astype(np.uint16) * 200 + 7)).save(
+        depth_path)
+    depth = types.SimpleNamespace(d_imgs=[depth_path], image_size=20)
     want = (T.load_and_preprocess(path, 20),
-            netvlad_index.netvlad_preprocess_7scenes(frame / 255.0))
+            netvlad_index.netvlad_preprocess_7scenes(frame / 255.0),
+            jax_7s.SevenScenes.load_depth(depth, 0))
     real_import = builtins.__import__
 
     def no_pil(name, *a, **k):
@@ -240,9 +247,9 @@ def test_pil_is_named_where_it_is_missing(monkeypatch, tmp_path):
     np.testing.assert_array_equal(T.load_and_preprocess(path, 20), want[0])
     np.testing.assert_array_equal(
         netvlad_index.netvlad_preprocess_7scenes(frame / 255.0), want[1])
-    depth = types.SimpleNamespace(d_imgs=[path], image_size=20)
-    with pytest.raises(ImportError, match="PIL"):
-        seven_scenes.SevenScenes.load_depth(depth, 0)
+    got = seven_scenes.SevenScenes.load_depth(depth, 0)
+    assert got.shape == (20, 27)
+    np.testing.assert_array_equal(got, want[2])
 
 
 # ---------------------------------------------------------------------------

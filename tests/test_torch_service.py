@@ -481,11 +481,14 @@ def test_device_none_without_cuda_raises_and_names_the_device(weights):
                               ServiceConfig(retrieval="shared-trunk"))
 
 
-def test_multi_gpu_forms_are_refused(weights):
+def test_mesh_forms_need_a_built_database(weights):
+    """The forms over several GPUs (tests/test_torch_sharding.py,
+    tests/test_torch_sharded_db.py) refuse an empty database, as the
+    query path does."""
     svc = port_service(weights, "shared-trunk")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(RuntimeError, match="database is empty"):
         svc.replicate_over(None)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(RuntimeError, match="database is empty"):
         svc.shard_database(None)
     assert not hasattr(svc, "query_compiles")
 

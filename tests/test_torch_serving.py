@@ -272,7 +272,9 @@ def test_port_and_chip_smoke_never_import_jax():
         "             'cli.train', 'cli.test', 'data.image_io',\n"
         "             'data.synthetic_scenes', 'data.pyg_import',\n"
         "             'cli.build_graphs', 'cli.serve', 'cli.parity',\n"
-        "             'cli.compute_pose_stats'):\n"
+        "             'cli.compute_pose_stats', 'parallel.mesh',\n"
+        "             'parallel.multihost', 'parallel.sharding',\n"
+        "             'parallel.sharded_db'):\n"
         "    assert 'relpose_gnn_tpu_torch.' + tail in sys.modules, tail\n"
         "print('clean')\n")])
     assert proc.returncode == 0, proc.stderr
