@@ -140,6 +140,29 @@ is no CPU fallback: without CUDA it exits 1 at once.
             predictions equal to `run_eval` on the same weights
             (deterministic algorithms on), 2 x 16 launches, predictions
             exported
+  zoo       (after `entry`, over the feed phase's stores) the rest of the
+            model zoo at full width, seeded weights: R3-vit (ViT-B/16 at
+            256x341 = 16x21 patches + CLS, dims 2048, bf16) served in
+            `shared-trunk` mode at the service deployment (1024 frames in
+            capacity 2048, 2 x 128 queries, 2 attention launches a batch;
+            its query step timed and profiled), one float32 cached-eval
+            batch kernel vs plain core (SLICE_TOL); `cli.train --backbone
+            vit` one epoch (64 steps + eval, a checkpoint) and `cli.test
+            --backbone vit` on it, losses finite, launches 2 x (64 + 16)
+            and 2 x 16; `bench_eval --model-name R3-vit | R3-32` (q/s,
+            mfu under 1) and `bench_train --model-name R3-vit` at batch 8;
+            `load_vit_weights` from a seeded timm-layout state dict with a
+            14x14 table resized to 16x21 (`encoder.fc` kept, every other
+            encoder tensor changed); R3-32 one float32 cached-eval batch
+            of 32 (E = 4096) kernel vs plain core; AtLoc (ResNet34, feat
+            2048, batch 32, bf16, E = 32) and in float32 kernel vs plain,
+            `atloc-lstm` finite; every `MODEL_NAMES` entry built by
+            `models/zoo.py::build_model` in bf16, one forward each, output
+            shapes against the JAX contract and launches per model
+            (ZOO_CONTRACT); ConvMapGNN (64 channels, 8x8 maps, BatchNorm
+            in train mode); the service with `s2d_stem=True` against the
+            7x7 stem, R3 fp32: neighbours equal, poses within 1e-4;
+            launches under `zoo ...` keys
   raw       the raw-frame path from PNG files on disk through the entry
             points a user calls, at R3's full width (ResNet34 at 256x341,
             dims 2048; NetVLAD VGG16 64 x 512 at 192x256; bf16):
@@ -278,7 +301,11 @@ from relpose_gnn_tpu_torch.evaluation.multiscene import MultiSceneService
 from relpose_gnn_tpu_torch.evaluation.service import (RelocalizationService,
                                                       ServiceConfig,
                                                       similarities)
-from relpose_gnn_tpu_torch.models.posenet import RelPoseGNN
+from relpose_gnn_tpu_torch.models import zoo
+from relpose_gnn_tpu_torch.models.gnn import ConvMapGNN
+from relpose_gnn_tpu_torch.models.posenet import (RelPoseGNN,
+                                                  RelPoseGNNConfig,
+                                                  init_weights)
 from relpose_gnn_tpu_torch.ops import _build, att_core, att_variants, pair_mlp
 from relpose_gnn_tpu_torch.ops import pose as pose_ops
 from relpose_gnn_tpu_torch.retrieval.netvlad_index import (IMAGENET_MEAN,
@@ -287,7 +314,8 @@ from relpose_gnn_tpu_torch.retrieval.netvlad_index import (IMAGENET_MEAN,
 from relpose_gnn_tpu_torch.retrieval.subsample import fold_in
 from relpose_gnn_tpu_torch.parallel.mesh import create_mesh
 from relpose_gnn_tpu_torch.training import experiment as experiment_mod
-from relpose_gnn_tpu_torch.training.checkpoints import save_torch_checkpoint
+from relpose_gnn_tpu_torch.training.checkpoints import (load_vit_weights,
+                                                        save_torch_checkpoint)
 from relpose_gnn_tpu_torch.training.experiment import (ExperimentConfig,
                                                        build_model,
                                                        evaluate_scene,
@@ -2278,6 +2306,441 @@ def run_entry(dev, root: str, sizes: FeedSizes) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the rest of the model zoo: R3-vit, R3-32, AtLoc and every named model
+# ---------------------------------------------------------------------------
+
+# what every model of the zoo returns on the card at B = 1, N = 8 (N = 32
+# for R3-32), T = 3 for the sequence models and B = 2 for the single-image
+# baselines: the JAX models' output shapes (None: no relative output), and
+# the attention kernel's launches in one forward
+ZOO_CONTRACT = {
+    "R1": ([(1, 8, 6), (1, 8, 8, 6), (1, 8, 8)], 2),
+    "light_knn": ([(1, 8, 6), (1, 8, 8, 6), (1, 8, 8)], 2),
+    "R2": ([(1, 8, 6), (1, 8, 8, 6), (1, 8, 8)], 2),
+    "R3": ([(1, 8, 6), (1, 8, 8, 6), (1, 8, 8)], 2),
+    "R3-vit": ([(1, 8, 6), (1, 8, 8, 6), (1, 8, 8)], 2),
+    "R3-32": ([(1, 32, 6), (1, 32, 32, 6), (1, 32, 32)], 2),
+    "posenetx": ([(1, 8, 6), None, (1, 8, 8)], 0),
+    "posenetx2": ([(1, 8, 6), (1, 8, 8, 6), (1, 8, 8)], 0),
+    "posenetx3": ([(1, 8, 6), (1, 8, 8, 6)], 2),
+    "posenetx-light": ([(1, 8, 6), (1, 8, 8, 6), (1, 8, 8)], 2),
+    "posenetxox": ([(1, 8, 6), (1, 8, 8, 6), (1, 8, 8)], 2),
+    "posenetx-r4": ([(1, 8, 6), (1, 8, 8, 6), (1, 8, 8)], 2),
+    "posenet": ([(2, 6)], 0),
+    "posenet-nolog": ([(2, 7)], 0),
+    "mapnet": ([(1, 3, 6)], 0),
+    "atloc": ([(2, 6)], 1),
+    "atloc-lstm": ([(2, 6)], 0),
+    "atloc+": ([(1, 3, 6)], 1),
+}
+ATLOC_BATCH = 32
+ZOO_F32_BATCH = {"R3-vit": 16, "R3-32": 32}
+
+
+def kernel_vs_plain(fn, what: str) -> float:
+    """fn() with the attention kernel against fn() with the plain core
+    swapped in (float32 models): every tensor of the result within
+    SLICE_TOL, integer ones (anchors) equal.  Returns the max |diff|."""
+    got = fn()
+    with mock.patch.object(att_core, "attention_core",
+                           att_core.attention_core_plain):
+        want = fn()
+    torch.cuda.synchronize()
+    pairs = (list(zip(got.values(), want.values())) if isinstance(got, dict)
+             else [(got, want)])
+    worst = 0.0
+    for g, w in pairs:
+        if not g.is_floating_point():
+            check(torch.equal(g, w), f"{what}: kernel and plain core "
+                  "differ in an integer output (anchors)")
+            continue
+        diff = (g - w).abs().max().item()
+        check(torch.allclose(g, w, **SLICE_TOL), f"{what}: kernel vs plain "
+              f"core differ by {diff}")
+        worst = max(worst, diff)
+    return worst
+
+
+def zoo_vit_service(dev, sizes: ServiceSizes, card: str) -> tuple:
+    """R3-vit (ViT-B/16, dims 2048, bf16, seeded) served in shared-trunk
+    mode at the service phase's deployment (1024 frames built into
+    capacity 2048, batch 128); then one float32 cached-eval batch, kernel
+    against plain core.  Returns (launches by path, record)."""
+    model = _synthetic.pose_model(dev, "R3-vit", torch.bfloat16, SEED,
+                                  vit_image_hw=(H, W))
+    feat = model.cfg.feat_dim
+    check(model.cfg.backbone == "vit"
+          and model.encoder.grid == (H // 16, W // 16),
+          f"R3-vit encoder: grid {model.encoder.grid}")
+    frames = synthetic_frames(dev, sizes.build, SEED + 20)
+    queries = synthetic_frames(dev, sizes.queries, SEED + 21)
+    poses = np.random.default_rng(SEED + 22).normal(
+        size=(sizes.build, 6)).astype(np.float32)
+    norm = _synthetic.make_norm(dev)
+    svc = RelocalizationService(model, None, ServiceConfig(
+        capacity=sizes.capacity, retrieval="shared-trunk",
+        retrieval_candidates=256))
+    t0 = time.perf_counter()
+    svc.build(frames, poses, norm, batch=sizes.embed_batch)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    check(tuple(svc.db_emb.shape) == (sizes.capacity, feat),
+          f"R3-vit service tables {tuple(svc.db_emb.shape)}")
+    att_core.LAUNCHES = 0
+    outs = [svc.query(queries, norm, seed) for seed in (0, 1)]
+    torch.cuda.synchronize()
+    launches = {"zoo R3-vit service": att_core.LAUNCHES}
+    check(att_core.LAUNCHES == 2 * 2, f"R3-vit service: {att_core.LAUNCHES} "
+          "attention launches for 2 query batches, want 2 a batch")
+    for out in outs:
+        check(tuple(out["pose"].shape) == (sizes.queries, 6)
+              and bool(torch.isfinite(out["pose"]).all())
+              and bool(svc.db_valid[out["neighbors"]].all()),
+              "R3-vit service: poses not finite [B, 6] or a bad neighbour")
+    step_ms = median_ms(lambda: svc.query(queries, norm, 0), 10)
+    prof = profile_step("zoo R3-vit service query step, batch "
+                        f"{sizes.queries}, shared-trunk",
+                        lambda: svc.query(queries, norm, 0), step_ms)
+    enc = model.encoder
+    phase("zoo", f"R3-vit (ViT: patch {enc.patch}, width {enc.dim}, depth "
+          f"{len(enc.blocks)}, {enc.heads} heads; {H}x{W} = "
+          f"{enc.grid[0]}x{enc.grid[1]} patches + CLS; dims {feat}, bf16) "
+          f"service, shared-trunk: build {sizes.build} frames "
+          f"into capacity {sizes.capacity} in {t_build:.2f} s; 2 x "
+          f"{sizes.queries} uint8 queries, poses finite, attention launches "
+          f"{launches['zoo R3-vit service']} (2 a batch); query step "
+          f"{step_ms} ms = {sizes.queries / step_ms * 1e3} q/s ({card})")
+    del svc
+
+    model32 = _synthetic.pose_model(dev, "R3-vit", None, SEED,
+                                    vit_image_hw=(H, W))
+    b = ZOO_F32_BATCH["R3-vit"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    args = (torch.randn(b, H, W, 3, device=dev, generator=gen),
+            torch.randn(b, 7, feat, device=dev, generator=gen),
+            torch.randn(b, 7, 6, device=dev, generator=gen),
+            torch.ones(b, 8, 8, dtype=torch.bool, device=dev))
+    step = serving.make_cached_eval_step(model32)
+    diff = kernel_vs_plain(lambda: step(*args), "R3-vit fp32 batch")
+    phase("zoo", f"R3-vit fp32 cached-eval batch of {b} (E = {b * 32}): "
+          f"anchors equal, pred max abs diff kernel vs plain core {diff:.3e}"
+          " (rtol=atol=1e-4)")
+    return launches, {"service_step_ms": step_ms,
+                      "service_qps": sizes.queries / step_ms * 1e3,
+                      "profile": prof}
+
+
+def zoo_vit_entry(dev, root: str, sizes: FeedSizes) -> dict:
+    """`cli.train --backbone vit` for one epoch over the feed phase's
+    stores (batch 8: 64 steps, a checkpoint, an eval), then `cli.test
+    --backbone vit` on that checkpoint.  Returns launches by path."""
+    save = osp.join(root, "zoo-vit-out")
+    model_args = ["--dataset", "7Scenes", "--seq-len", "8", "--dtype",
+                  "bfloat16", "--batch-size", str(sizes.batch),
+                  "--backbone", "vit"]
+    steps = sizes.train // sizes.batch
+    eval_batches = -(-sizes.test // sizes.batch)
+    att_core.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = cli_train.main([
+        "--experiment", "2", "--train-scene", "chess", "--test-scene",
+        "chess", "--train-data-dir", root, "--test-data-dir", root,
+        "--save-dir", save, "--max-epoch", "1", "--ckpt-every", "1",
+        "--eval-after-epoch", "-1", *model_args])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"zoo cli.train vit": att_core.LAUNCHES}
+    state, best = out["state"], out["best"]["chess"]
+    check(state.step == steps and state.model.cfg.backbone == "vit",
+          f"cli.train --backbone vit took {state.step} steps")
+    check(launches["zoo cli.train vit"] == 2 * (steps + eval_batches),
+          f"cli.train vit launched the attention kernel "
+          f"{launches['zoo cli.train vit']} times, want 2 x ({steps} + "
+          f"{eval_batches})")
+    logdir = osp.join(save, "7Scenes", "chess",
+                      "7Scenes_single_w_chess_w_test_chess_seed_0")
+    with open(osp.join(logdir, "metrics.jsonl")) as f:
+        losses = [rec["loss"] for rec in map(json.loads, f) if "loss" in rec]
+    check(losses and all(np.isfinite(losses)) and np.isfinite(
+        best["median_t"]) and np.isfinite(best["median_q"]),
+        f"cli.train vit: losses {losses}, medians {best}")
+    ckdir = osp.join(logdir, "ckpt")
+    phase("zoo", f"cli.train --backbone vit --experiment 2 chess, R3-vit "
+          f"bf16 batch {sizes.batch}, 1 epoch = {steps} steps + eval, "
+          f"checkpoint after it: {wall:.1f} s ({wall / steps * 1e3:.1f} ms "
+          f"a step with the eval and the checkpoint); loss {losses[-1]:.4f},"
+          f" eval median {best['median_t']:.4f} m; attention launches "
+          f"{launches['zoo cli.train vit']} (= 2 x ({steps} + "
+          f"{eval_batches}))")
+    att_core.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = cli_test.main([
+        "--test-scene", "chess", "--test-data-dir", root, "--save-dir",
+        save, "--weights-filename", ckdir, *model_args])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["zoo cli.test vit"] = att_core.LAUNCHES
+    g = got["chess"]
+    check(launches["zoo cli.test vit"] == 2 * eval_batches
+          and g.pred_poses.shape == (sizes.test, 7)
+          and bool(np.isfinite(g.pred_poses).all()),
+          f"cli.test vit: launches {launches['zoo cli.test vit']}, "
+          f"predictions {g.pred_poses.shape}")
+    phase("zoo", f"cli.test --backbone vit on ckpt/ (train_state.pt, "
+          f"strict=True): {sizes.test} queries, median {g.median_t:.4f} m, "
+          f"{g.median_q:.4f} deg in {wall:.1f} s; attention launches "
+          f"{launches['zoo cli.test vit']} (= 2 x {eval_batches})")
+    shutil.rmtree(save)
+    return launches
+
+
+def zoo_benches(card: str) -> tuple:
+    """`bench_eval --model-name R3-vit | R3-32` in process (q/s, mfu under
+    1) and `bench_train --model-name R3-vit` at batch 8.  Returns
+    (launches by path, records)."""
+    launches, records = {}, {}
+    for name in ("R3-vit", "R3-32"):
+        att_core.LAUNCHES = 0
+        out = bench_eval.main(["--model-name", name, "--iters", str(ITERS)])
+        torch.cuda.synchronize()
+        launches[f"zoo bench_eval {name}"] = att_core.LAUNCHES
+        check(out["mfu"] is not None and 0.0 < out["mfu"] < 1.0
+              and out["value"] > 0 and att_core.LAUNCHES > 0,
+              f"bench_eval {name}: {out}")
+        records[name] = out
+        phase("zoo", f"bench_eval.main --model-name {name} batch "
+              f"{out['batch']}: {out['value']} q/s ({out['step_ms']} ms), "
+              f"mfu {out['mfu']} ({out['step_gflops']} GFLOP per step), "
+              f"peak memory {out['peak_memory_gib']} GiB, attention "
+              f"launches {att_core.LAUNCHES} ({card})")
+    att_core.LAUNCHES = 0
+    out = bench_train.main(["--model-name", "R3-vit", "--batches", "8",
+                            "--iters", "10"])
+    torch.cuda.synchronize()
+    launches["zoo bench_train R3-vit"] = att_core.LAUNCHES
+    r = out["train"][0]
+    check(r["loss_finite"] and 0.0 < r["mfu"] < 1.0
+          and r["attention_launches_per_step"] == 2,
+          f"bench_train R3-vit: {out}")
+    records["R3-vit train"] = r
+    phase("zoo", f"bench_train.main --model-name R3-vit batch 8: "
+          f"{r['ms_per_step']} ms/step = {r['graphs_per_s']} graphs/s, mfu "
+          f"{r['mfu']}, peak memory {r['peak_memory_gib']} GiB ({card})")
+    return launches, records
+
+
+def zoo_vit_warm_start(dev, tmp: str) -> None:
+    """`load_vit_weights` from a seeded timm-layout state dict of R3-vit's
+    encoder (ViT-B/16) with a 14x14 position table (224 px pretraining),
+    resized to the model's grid (16x21 at 256x341): `encoder.fc` stays as
+    it was, every other encoder tensor changes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    with torch.device(dev):
+        model = RelPoseGNN(RelPoseGNNConfig.preset(
+            "R3-vit", dtype=torch.bfloat16, vit_image_hw=(H, W)))
+    init_weights(model, gen)
+    enc = model.encoder
+    sd = {k: (0.02 * torch.randn(v.shape, device=dev, generator=gen)).cpu()
+          for k, v in enc.state_dict().items() if not k.startswith("fc.")}
+    sd["pos_embed"] = 0.02 * torch.randn(1, 14 * 14 + 1, enc.dim)
+    path = osp.join(tmp, "vit_timm.pth")
+    torch.save(sd, path)
+    before = {k: v.clone() for k, v in enc.state_dict().items()}
+    state = create_train_state(model, TrainerConfig())
+    t0 = time.perf_counter()
+    load_vit_weights(state, path, heads=enc.heads, grid_hw=enc.grid)
+    wall = time.perf_counter() - t0
+    after = enc.state_dict()
+    check(all(torch.equal(after[k], before[k]) for k in ("fc.weight",
+                                                         "fc.bias")),
+          "load_vit_weights changed encoder.fc")
+    changed = [k for k in after if not k.startswith("fc.")
+               and not torch.equal(after[k], before[k])]
+    check(len(changed) == len(after) - 2,
+          f"load_vit_weights left {len(after) - 2 - len(changed)} encoder "
+          "tensors as they were")
+    tokens = enc.grid[0] * enc.grid[1] + 1
+    check(tuple(after["pos_embed"].shape) == (1, tokens, enc.dim),
+          f"pos_embed {tuple(after['pos_embed'].shape)}")
+    phase("zoo", f"load_vit_weights: a seeded timm-layout state dict of "
+          f"R3-vit's encoder ({len(sd)} tensors, 14x14 pos_embed) resized "
+          f"to {enc.grid[0]}x{enc.grid[1]} and loaded in {wall:.2f} s: "
+          f"{len(changed)} encoder tensors changed, encoder.fc as it was")
+    os.remove(path)
+
+
+def zoo_atloc(dev) -> dict:
+    """AtLoc at full width (ResNet34, feat 2048, 256x341, batch 32, bf16):
+    a forward through the attention kernel (E = 32, C = 256); the same
+    weights in float32, kernel against plain core; `atloc-lstm` finite."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    images = torch.rand(ATLOC_BATCH, H, W, 3, device=dev, generator=gen)
+    model = zoo.build_model("atloc", dtype=torch.bfloat16, device=dev,
+                            seed=SEED)
+    att_core.LAUNCHES = 0
+    with torch.inference_mode():
+        out = model(images)
+    torch.cuda.synchronize()
+    launches = {"zoo AtLoc": att_core.LAUNCHES}
+    check(att_core.LAUNCHES == 1 and tuple(out.shape) == (ATLOC_BATCH, 6)
+          and bool(torch.isfinite(out).all()),
+          f"AtLoc: {att_core.LAUNCHES} launches, out {tuple(out.shape)}")
+    model32 = zoo.build_model("atloc", device=dev, seed=SEED)
+    with torch.inference_mode():
+        diff = kernel_vs_plain(lambda: model32(images), "AtLoc fp32")
+    lstm = zoo.build_model("atloc-lstm", dtype=torch.bfloat16, device=dev,
+                           seed=SEED)
+    with torch.inference_mode():
+        out_lstm = lstm(images)
+    check(tuple(out_lstm.shape) == (ATLOC_BATCH, 6)
+          and bool(torch.isfinite(out_lstm).all()), "atloc-lstm output")
+    phase("zoo", f"AtLoc (ResNet34, feat 2048, {H}x{W}, batch "
+          f"{ATLOC_BATCH}, bf16): out [{ATLOC_BATCH}, 6] finite, attention "
+          f"launches {launches['zoo AtLoc']} (E = {ATLOC_BATCH}, C = 256); "
+          f"fp32 kernel vs plain core max abs diff {diff:.3e} "
+          f"(rtol=atol=1e-4); atloc-lstm (cuDNN LSTM) [{ATLOC_BATCH}, 6] "
+          "finite")
+    return launches
+
+
+def zoo_every_model(dev) -> dict:
+    """Every name of `MODEL_NAMES` built by `zoo.build_model` on the card
+    at full width, eval mode, bf16, one forward: output shapes equal the
+    JAX contract (ZOO_CONTRACT), attention launches counted per model."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    launches = {}
+    check(tuple(ZOO_CONTRACT) == zoo.MODEL_NAMES, "ZOO_CONTRACT names")
+    for name, (shapes, want_launches) in ZOO_CONTRACT.items():
+        extra = {"vit_image_hw": (H, W)} if name == "R3-vit" else {}
+        model = zoo.build_model(name, dtype=torch.bfloat16, device=dev,
+                                seed=SEED, **extra)
+        if len(shapes) > 1:                        # graph models
+            n = shapes[0][1]
+            args = (torch.rand(1, n, H, W, 3, device=dev, generator=gen),
+                    ~torch.eye(n, dtype=torch.bool, device=dev)[None])
+        elif len(shapes[0]) == 3:                  # sequence models
+            args = (torch.rand(1, 3, H, W, 3, device=dev, generator=gen),)
+        else:
+            args = (torch.rand(2, H, W, 3, device=dev, generator=gen),)
+        att_core.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = model(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[f"zoo {name}"] = att_core.LAUNCHES
+        outs = list(out) if isinstance(out, tuple) else [out]
+        got = [None if o is None else tuple(o.shape)
+               for o in outs[:len(shapes)]]
+        check(got == shapes, f"{name}: output shapes {got}, want {shapes}")
+        check(all(bool(torch.isfinite(o.float()).all())
+                  for o in outs[:len(shapes)] if o is not None),
+              f"{name}: non-finite output")
+        check(att_core.LAUNCHES == want_launches, f"{name}: "
+              f"{att_core.LAUNCHES} attention launches, want {want_launches}")
+        n_params = sum(p.numel() for p in model.parameters())
+        phase("zoo", f"{name}: {n_params / 1e6:.1f} M parameters, outputs "
+              f"{got}, attention launches {att_core.LAUNCHES}, "
+              f"{wall * 1e3:.1f} ms first forward")
+        del model, out, outs
+    return launches
+
+
+def zoo_conv_map(dev) -> None:
+    """ConvMapGNN at 64 channels on 8x8 maps, BatchNorm in train mode."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    with torch.device(dev):
+        layer = ConvMapGNN(64, use_attention=True)
+    init_weights(layer, gen)
+    x = torch.randn(2, 4, 8, 8, 64, device=dev, generator=gen)
+    e = torch.randn(2, 4, 4, 8, 8, 64, device=dev, generator=gen)
+    adj = ~torch.eye(4, dtype=torch.bool, device=dev).expand(2, 4, 4)
+    x_new, e_new = layer(x, e, adj, train=True)
+    torch.cuda.synchronize()
+    check(tuple(x_new.shape) == (2, 4, 8, 8, 64)
+          and tuple(e_new.shape) == (2, 4, 4, 8, 8, 64)
+          and bool(torch.isfinite(x_new).all())
+          and bool((layer.edge_bn1.running_var != 1).any()),
+          "ConvMapGNN train-mode forward")
+    phase("zoo", "ConvMapGNN 64 channels on 8x8 maps (4 nodes, cosine "
+          "gate), BatchNorm in train mode: x' [2, 4, 8, 8, 64], e' [2, 4, 4, "
+          "8, 8, 64] finite, running statistics updated")
+
+
+def zoo_s2d(dev) -> None:
+    """The service with `s2d_stem=True` against the default stem, R3
+    float32 (BN folded both ways), on one batch: neighbours equal, poses
+    within 1e-4."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    with torch.device(dev):
+        model = RelPoseGNN(RelPoseGNNConfig.preset("R3")).eval()
+    init_weights(model, gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.1, 0.1, generator=gen)
+                m.running_var.uniform_(0.8, 1.2, generator=gen)
+    frames = synthetic_frames(dev, 128, SEED + 29)
+    queries = synthetic_frames(dev, 16, SEED + 30)
+    poses = np.random.default_rng(SEED + 31).normal(size=(128, 6)).astype(
+        np.float32)
+    norm = _synthetic.make_norm(dev)
+    out = {}
+    for s2d in (False, True):
+        svc = RelocalizationService(model, None, ServiceConfig(
+            retrieval="shared-trunk", deterministic=True), s2d_stem=s2d)
+        check(svc.model.cfg.s2d_stem == s2d, "s2d_stem not applied")
+        svc.build(frames, poses, norm, batch=32)
+        out[s2d] = svc.query(queries, norm, 0)
+    torch.cuda.synchronize()
+    check(torch.equal(out[True]["neighbors"], out[False]["neighbors"]),
+          "s2d stem: neighbours differ from the 7x7 stem's")
+    diff = (out[True]["pose"] - out[False]["pose"]).abs().max().item()
+    check(torch.allclose(out[True]["pose"], out[False]["pose"], rtol=1e-4,
+                         atol=1e-4), f"s2d stem: poses differ by {diff}")
+    phase("zoo", f"RelocalizationService(s2d_stem=True) vs the 7x7 stem, "
+          f"R3 fp32, 128 frames, 16 queries: neighbours equal, pose max abs "
+          f"diff {diff:.3e} (1e-4)")
+
+
+def run_zoo(dev, root: str, sizes: FeedSizes, card: str) -> tuple:
+    """The `zoo` phase; returns (launches by path, records)."""
+    t_start = time.perf_counter()
+    launches, records = {}, {}
+    got, records["R3-vit service"] = zoo_vit_service(dev, ServiceSizes(),
+                                                     card)
+    launches.update(got)
+    launches.update(zoo_vit_entry(dev, root, sizes))
+    got, benches = zoo_benches(card)
+    launches.update(got)
+    records.update(benches)
+    zoo_vit_warm_start(dev, root)
+    # R3-32 at full width: one float32 cached-eval batch, kernel vs plain
+    model32 = _synthetic.pose_model(dev, "R3-32", None, SEED)
+    b = ZOO_F32_BATCH["R3-32"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    args = (torch.randn(b, H, W, 3, device=dev, generator=gen),
+            torch.randn(b, 31, model32.cfg.feat_dim, device=dev,
+                        generator=gen),
+            torch.randn(b, 31, 6, device=dev, generator=gen),
+            torch.ones(b, 32, 32, dtype=torch.bool, device=dev))
+    step = serving.make_cached_eval_step(model32)
+    diff = kernel_vs_plain(lambda: step(*args), "R3-32 fp32 batch")
+    phase("zoo", f"R3-32 fp32 cached-eval batch of {b} (E = {b * 32 * 4}, "
+          f"C = 256): anchors equal, pred max abs diff kernel vs plain core "
+          f"{diff:.3e} (rtol=atol=1e-4)")
+    del model32, step
+    launches.update(zoo_atloc(dev))
+    launches.update(zoo_every_model(dev))
+    zoo_conv_map(dev)
+    zoo_s2d(dev)
+    records["seconds"] = time.perf_counter() - t_start
+    phase("zoo", f"phase zoo: {records['seconds']:.1f} s; attention "
+          f"launches by path {launches}")
+    return launches, records
+
+
+# ---------------------------------------------------------------------------
 # several GPUs: the mesh, data-parallel training, the sharded database
 # ---------------------------------------------------------------------------
 
@@ -2580,6 +3043,10 @@ def _gloo_rank(rank: int, store: str, root: str, out) -> None:
                 del ref, svc
         finally:
             dist.destroy_process_group()
+        # as numpy, pickled by value: a tensor goes through the queue as a
+        # shared descriptor that this process must still be alive to hand
+        # over when the parent reads it
+        res["tp"]["head"] = res["tp"]["head"].numpy()
         out.put((rank, "ok", res))
     except BaseException:  # noqa: BLE001 - reported to the parent
         out.put((rank, "error", traceback.format_exc()))
@@ -2669,8 +3136,8 @@ def run_multi_gloo(dev, root: str) -> dict:
               f"rank {rank}: {tr['launches']} attention launches")
         launches[f"multi gloo rank {rank} run_training"] = tr["launches"]
         tp = results[rank]["tp"]
-        gap = float((tp["head"] - tp_want["head"]).abs().max()
-                    / tp_want["head"].abs().max())
+        gap = float((torch.from_numpy(tp["head"]) - tp_want["head"]
+                     ).abs().max() / tp_want["head"].abs().max())
         check(abs(tp["loss"] - tp_want["loss"]) <= GLOO_LOSS_RTOL * abs(
             tp_want["loss"]) and gap <= TP_GRAD_REL_TOL,
             f"rank {rank}: tensor-parallel loss {tp['loss']} vs whole "
@@ -3536,6 +4003,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as feed_root:
         att_launches.update(run_feed(dev, feed_root, feed_sizes, {}))
         att_launches.update(run_entry(dev, feed_root, feed_sizes))
+        zoo_launches, _ = run_zoo(dev, feed_root, feed_sizes, card)
+        att_launches.update(zoo_launches)
         att_times = time_cached_eval(dev, model, card)
         att_times.update(time_train(dev, card))
         att_times.update(time_feed(dev, card, feed_root, feed_sizes, {}))

@@ -23,8 +23,11 @@ Subpackages:
   ops         dense graph ops, quaternion algebra; the CUDA kernels
               (attention core, with its autograd Function; fused pair MLP;
               attention variants), their wrappers and their build
-  models      ResNet trunk, BN folding, attention, GNN, RelPoseGNN, VGG16,
-              NetVLAD, weight and train-state conversion
+  models      ResNet trunk, BN folding, attention, GNN layers, RelPoseGNN
+              (R1-R3, R3-vit, R3-32), the ViT, the baselines (AtLoc,
+              PoseNet, MapNet), the PoseNetX family, the pair encoder, the
+              registry of every model (zoo.py), VGG16, NetVLAD, weight and
+              train-state conversion
   data        input normalisation, packed graph stores, the training feed
   retrieval   neighbour subsampling, descriptor index
   training    criteria, trainer, checkpoints, experiment loop, pose fusion

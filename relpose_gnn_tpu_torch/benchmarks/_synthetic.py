@@ -1,8 +1,9 @@
 """Seeded models, frames and database tables for the benches and the smoke run.
 
 The repository holds no trained checkpoint, so whatever times or smoke-tests
-the serving path builds its models here: published widths (preset R3;
-VGG16 + NetVLAD with 64 clusters x 512), weights random from a seed.  The
+the serving path builds its models here: published widths (preset R3, or
+the stretch presets R3-vit and R3-32; VGG16 + NetVLAD with 64 clusters x
+512), weights random from a seed.  The
 benches take the widths as flags so that the CPU tests can run them at a
 tiny size; the defaults are the full ones.
 """
@@ -27,10 +28,13 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": None}
 
 def add_model_args(ap: argparse.ArgumentParser) -> None:
     """The flags that size the models; the defaults are the full widths."""
-    ap.add_argument("--model-name", default="R3", help="config preset")
+    ap.add_argument("--model-name", default="R3",
+                    help="config preset: R3, or the stretch configs "
+                         "R3-vit (the ViT-B/16 node encoder) / R3-32 "
+                         "(32-node graphs)")
     ap.add_argument("--backbone", default=None,
                     help="override the preset's backbone (resnet18 / "
-                         "resnet34)")
+                         "resnet34 / vit)")
     ap.add_argument("--dims", type=int, default=None,
                     help="override feat_dim, edge_dim and node_dim")
     ap.add_argument("--seq-len", type=int, default=None,
@@ -55,20 +59,25 @@ def model_overrides(args) -> dict:
     if args.seq_len is not None:
         kw["num_nodes"] = args.seq_len
         kw["knn"] = min(4, args.seq_len - 2)
+    # a ViT's position table is built for the frames' size
+    kw["vit_image_hw"] = (args.height, args.width)
     return kw
 
 
 def pose_model(device: torch.device, name: str = "R3",
                dtype: torch.dtype | None = torch.bfloat16, seed: int = 0,
                **overrides) -> RelPoseGNN:
-    """The serving form of a preset: seeded weights, random BatchNorm
-    statistics, BN folded, compact edges."""
+    """The serving form of a preset: seeded weights, compact edges; a
+    ResNet backbone with random BatchNorm statistics, BN folded (a ViT has
+    none)."""
     cfg = RelPoseGNNConfig.preset(name, dtype=dtype, compact_edges=True,
                                   **overrides)
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.device(device):
         model = RelPoseGNN(cfg).eval()
     init_weights(model, gen)
+    if cfg.backbone == "vit":
+        return model
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, torch.nn.BatchNorm2d):

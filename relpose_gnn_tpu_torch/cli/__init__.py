@@ -108,10 +108,6 @@ def refuse_unported(args) -> None:
         raise NotImplementedError(
             "--trace-dir: the profiler trace of the serving loop "
             "(utils/profiling.py) is ROADMAP.md queue 1, slice 9 (tooling)")
-    if getattr(args, "backbone", "") == "vit":
-        raise NotImplementedError(
-            "--backbone vit: the ViT encoder is ROADMAP.md queue 1, "
-            "slice 8 (the rest of the model zoo)")
     w = getattr(args, "weights_filename", None) or getattr(args, "weights",
                                                            None)
     if w and osp.isdir(w) and ckpt.latest_epoch(w) is None and any(

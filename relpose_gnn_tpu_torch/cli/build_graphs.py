@@ -94,7 +94,7 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "--retrieval vlad (and auto on Cambridge): classical ORB-VLAD "
             "retrieval needs cv2 and sklearn; it is ROADMAP.md queue 1, "
-            "slice 8 (retrieval/vlad.py).  Pass --retrieval netvlad or "
+            "slice 8b (retrieval/vlad.py).  Pass --retrieval netvlad or "
             "--sampling-method RAND")
     device = resolve_device(args.device)
 

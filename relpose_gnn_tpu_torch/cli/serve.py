@@ -202,13 +202,14 @@ def _make_query_batches(q, args, h: int, w: int):
     return gen, src_indices
 
 
-def _load_model(args, device: torch.device):
-    """The pose model, seeded from --seed, with --weights loaded."""
+def _load_model(args, device: torch.device, hw: tuple[int, int]):
+    """The pose model, seeded from --seed, with --weights loaded; a ViT
+    backbone's position table is built for the serving size `hw`."""
     ecfg = ExperimentConfig(dataset=args.dataset, model_name=args.model_name,
                             backbone=args.backbone, feat_dim=args.feat_dim,
                             seq_len=args.seq_len, knn=args.seq_len // 2,
                             droprate=0.0, dtype=args.dtype, seed=args.seed)
-    model = build_model(ecfg, device)
+    model = build_model(ecfg, device, hw)
     if args.weights:
         if osp.isdir(args.weights):
             ckpt.restore_checkpoint(args.weights,
@@ -247,12 +248,12 @@ def _run(args):
                              f"--mesh-data {args.mesh_data}")
         mesh = create_mesh(n_data=args.mesh_data, n_model=1)
     device = resolve_device(args.device)
-    model = _load_model(args, device)
     h = args.image_size
     # serve at the aspect the graph builder stores: 7-Scenes 640x480
     # (4:3 -> 256x341), Cambridge 1920x1080 (16:9 -> 256x455)
     aspect = 4 / 3 if args.dataset == "7Scenes" else 16 / 9
     w = int(round(h * aspect))
+    model = _load_model(args, device, (h, w))
     rhw = tuple(args.retrieval_hw)
 
     netvlad = None

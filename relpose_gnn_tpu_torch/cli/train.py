@@ -55,8 +55,8 @@ def parse_args(argv):
                    choices=("bfloat16", "float32"))
     p.add_argument("--backbone", default="resnet34",
                    choices=("resnet34", "resnet18", "vit"),
-                   help="node encoder (resnet34 = reference; vit is not "
-                        "ported yet)")
+                   help="node encoder (resnet34 = reference; vit = "
+                        "stretch, ViT-B/16)")
     p.add_argument("--feat-dim", type=int, default=0,
                    help="override feat/edge/node dims (0 = preset default)")
     p.add_argument("--mesh-data", type=int, default=0,

@@ -274,7 +274,7 @@ class RelocalizationService:
 
     def __init__(self, model: RelPoseGNN, netvlad: NetVLADEncoder | None,
                  cfg: ServiceConfig = ServiceConfig(), fold_bn: bool = True,
-                 compact_edges: bool = True,
+                 s2d_stem: bool = False, compact_edges: bool = True,
                  device: torch.device | str | None = None):
         if cfg.retrieval not in ("netvlad", "shared-trunk"):
             raise ValueError(f"unknown retrieval mode {cfg.retrieval!r}: "
@@ -290,8 +290,10 @@ class RelocalizationService:
         self.device = resolve_device(device)
         if fold_bn and model.cfg.backbone.startswith("resnet") \
                 and not model.cfg.bn_folded:
-            # serving form: BN folded into the conv weights
-            _, model = fold_relpose_backbone(model)
+            # serving form: BN folded into the conv weights; `s2d_stem`
+            # also rewrites the stem into its space-to-depth form (the
+            # JAX service's A/B knob, off by default)
+            _, model = fold_relpose_backbone(model, s2d_stem=s2d_stem)
         if compact_edges and model.cfg.use_gnn \
                 and not model.cfg.compact_edges:
             # compact edge-list GNN: pair/attention work on the real kNN

@@ -27,8 +27,17 @@ dropout draws the global batch's masks and keeps this rank's rows, so two
 ranks compute what one process computes on the whole batch.  `remat=True`
 recomputes the backbone's activations in the backward
 (`torch.utils.checkpoint`); the recomputation leaves the BN running
-statistics alone.  What the JAX config offers beyond this raises
-NotImplementedError naming the ROADMAP.md queue that will bring it.
+statistics alone.
+
+`backbone="vit"` swaps the ResNet for the ViT-B/16 encoder
+(models/vit.py), held under `encoder.*` with timm's names: the preset
+R3-vit.  flax sizes the ViT's position table from the batch it is
+initialised with; a torch module is built eagerly, so `vit_image_hw`
+names that input size.  R3-32 is R3 on 32-node graphs.  The ablations
+`use_gnn=False` (an MLP on the edge features, `mlp`) and `use_ap=False`
+(the absolute heads on pair features, pred_abs [B, N, N, 6]) are the JAX
+model's; so is `s2d_stem`, the serving form of the stem that
+`models/fold_bn.py::fold_relpose_backbone(s2d_stem=True)` builds.
 """
 
 from __future__ import annotations
@@ -44,8 +53,9 @@ import torch.utils.checkpoint
 
 from relpose_gnn_tpu_torch.models.attention import AttentionBlock
 from relpose_gnn_tpu_torch.models.dense import dense
-from relpose_gnn_tpu_torch.models.gnn import DenseEdgeGNN
+from relpose_gnn_tpu_torch.models.gnn import MLP2, DenseEdgeGNN
 from relpose_gnn_tpu_torch.models.resnet import ResNet
+from relpose_gnn_tpu_torch.models.vit import LayerScale, ViTEncoder
 from relpose_gnn_tpu_torch.ops import graph as graph_ops
 from relpose_gnn_tpu_torch.parallel.sharding import (copy_to_model,
                                                      gather_from_model)
@@ -56,7 +66,8 @@ _STAGES = {"resnet34": (3, 4, 6, 3), "resnet18": (2, 2, 2, 2)}
 @dataclasses.dataclass(frozen=True)
 class RelPoseGNNConfig:
     """Static hyperparameters; the same fields and presets as the JAX
-    config, minus the not-yet-ported knobs (s2d_stem, vit_layer_scale)."""
+    config, and `vit_image_hw` (the ViT's input size, see the module
+    docstring)."""
 
     num_nodes: int = 8
     feat_dim: int = 2048
@@ -74,13 +85,18 @@ class RelPoseGNNConfig:
     dtype: torch.dtype | None = None  # compute dtype (torch.bfloat16 to serve)
     remat: bool = False         # recompute the backbone in the backward
     bn_folded: bool = False     # serving form: BN folded into the convs
+    s2d_stem: bool = False      # serving form: space-to-depth stem
+    vit_layer_scale: bool = False  # backbone="vit": DINOv2 LayerScale
+    vit_image_hw: tuple = (256, 341)  # backbone="vit": the input size
     compact_edges: bool = False  # GNN on the compact edge list
 
     @classmethod
     def preset(cls, name: str, **overrides) -> "RelPoseGNNConfig":
         """'R1' = PoseNetX_LIGHT_KNN (two untied layers); 'R2' =
         PoseNetX_R2 dims 1024; 'R3' = PoseNetX_R2 dims 2048, the
-        production config."""
+        production config; the stretch configs 'R3-vit' (R3 with the
+        ViT-B/16 node encoder) and 'R3-32' (R3 on 32-node graphs).
+        Overrides win over the preset."""
         base = {
             "R1": dict(feat_dim=2048, edge_dim=2048, node_dim=2048,
                        num_gnn_layers=2, gnn_recursion=2),
@@ -88,39 +104,74 @@ class RelPoseGNNConfig:
                        num_gnn_layers=1, gnn_recursion=2),
             "R3": dict(feat_dim=2048, edge_dim=2048, node_dim=2048,
                        num_gnn_layers=1, gnn_recursion=2),
+            "R3-vit": dict(feat_dim=2048, edge_dim=2048, node_dim=2048,
+                           num_gnn_layers=1, gnn_recursion=2,
+                           backbone="vit"),
+            "R3-32": dict(feat_dim=2048, edge_dim=2048, node_dim=2048,
+                          num_gnn_layers=1, gnn_recursion=2, num_nodes=32),
         }[name]
         base.update(overrides)
         return cls(**base)
 
 
-def _refuse_unported(c: RelPoseGNNConfig) -> None:
-    if c.backbone not in _STAGES:
-        raise NotImplementedError(
-            f"backbone={c.backbone!r}: only resnet34/resnet18 are ported; "
-            "the ViT encoder is in ROADMAP.md, 'Modules to port', the rest "
-            "of the model zoo")
-    if not (c.use_gnn and c.use_ap):
-        raise NotImplementedError(
-            "use_gnn=False / use_ap=False ablations are in ROADMAP.md, "
-            "'Modules to port', the rest of the model zoo")
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None, shard=None) -> torch.Tensor:
+    """flax `nn.Dropout(rate)`: keep with probability 1 - rate and scale
+    what is kept by 1 / (1 - rate); the mask is drawn from `generator`,
+    for the global batch of `shard`'s ranks (this rank's rows of it kept)
+    where a shard is given."""
+    if generator is None:
+        raise ValueError("dropout is active (train=True or "
+                         "eval_dropout=True with droprate > 0) and "
+                         "needs a torch.Generator")
+    keep_prob = 1.0 - rate
+    if keep_prob == 0.0:
+        return torch.zeros_like(x)
+    shape = x.shape if shard is None else (
+        (shard.size * x.shape[0],) + tuple(x.shape[1:]))
+    keep = torch.rand(shape, generator=generator,
+                      device=generator.device) < keep_prob
+    if shard is not None:
+        keep = keep[shard.rows(x.shape[0])]
+    return torch.where(keep.to(x.device), x / keep_prob,
+                       torch.zeros_like(x))
+
+
+def make_backbone(c: RelPoseGNNConfig) -> nn.Module:
+    """The node encoder of `c.backbone`: a ResNet trunk or the ViT."""
+    if c.backbone in _STAGES:
+        return ResNet(_STAGES[c.backbone], c.feat_dim, dtype=c.dtype,
+                      folded=c.bn_folded, s2d_stem=c.s2d_stem)
+    if c.backbone == "vit":
+        return ViTEncoder(c.feat_dim, dtype=c.dtype,
+                          layer_scale=c.vit_layer_scale,
+                          image_hw=tuple(c.vit_image_hw))
+    raise ValueError(f"unknown backbone {c.backbone!r}")
 
 
 class RelPoseGNN(nn.Module):
     def __init__(self, cfg: RelPoseGNNConfig):
         super().__init__()
-        _refuse_unported(cfg)
         self.cfg = c = cfg
-        self.feature_extractor = ResNet(_STAGES[c.backbone], c.feat_dim,
-                                        dtype=c.dtype, folded=c.bn_folded)
+        if c.backbone == "vit":
+            self.encoder = make_backbone(c)
+        else:
+            self.feature_extractor = make_backbone(c)
         self.proj_edge = nn.Linear(2 * c.feat_dim, c.edge_dim)
         if c.use_attention:
             self.att = AttentionBlock(c.feat_dim, dtype=c.dtype)
-        for i in range(c.num_gnn_layers):
-            self.add_module(f"gnn{i + 1}", DenseEdgeGNN(
-                c.feat_dim if i == 0 else c.node_dim, c.edge_dim,
-                c.node_dim, dtype=c.dtype))
-        self.fc_xyz = nn.Linear(c.node_dim, 3)
-        self.fc_wpqr = nn.Linear(c.node_dim, 3)
+        if c.use_gnn:
+            for i in range(c.num_gnn_layers):
+                self.add_module(f"gnn{i + 1}", DenseEdgeGNN(
+                    c.feat_dim if i == 0 else c.node_dim, c.edge_dim,
+                    c.node_dim, dtype=c.dtype))
+        else:
+            self.mlp = MLP2(c.edge_dim, c.edge_dim, c.edge_dim, c.dtype)
+        x_dim = c.node_dim if c.use_gnn else c.feat_dim
+        if not c.use_ap:   # the heads read pair features
+            x_dim *= 2
+        self.fc_xyz = nn.Linear(x_dim, 3)
+        self.fc_wpqr = nn.Linear(x_dim, 3)
         self.fc_xyz_R = nn.Linear(c.edge_dim, 3)
         self.fc_wpqr_R = nn.Linear(c.edge_dim, 3)
         self.tp = None    # a ModelShard under tensor parallelism
@@ -130,7 +181,7 @@ class RelPoseGNN(nn.Module):
         this rank's blocks (their parameters already cut to them): the
         GNN MLPs and `proj_edge`, whose output columns are gathered."""
         self.tp = tp
-        for i in range(self.cfg.num_gnn_layers):
+        for i in range(self.cfg.num_gnn_layers if self.cfg.use_gnn else 0):
             layer = getattr(self, f"gnn{i + 1}")
             for mlp in (layer.edge_model.edge_mlp, layer.mlp,
                         layer.mlp_updating):
@@ -161,12 +212,15 @@ class RelPoseGNN(nn.Module):
             first = [True]
 
             def run(x):
-                out = self.feature_extractor(x, True, first[0], shard)
+                out = (self.encoder(x) if self.cfg.backbone == "vit" else
+                       self.feature_extractor(x, True, first[0], shard))
                 first[0] = False
                 return out
 
             feats = torch.utils.checkpoint.checkpoint(run, flat,
                                                       use_reentrant=False)
+        elif self.cfg.backbone == "vit":
+            feats = self.encoder(flat)
         else:
             feats = self.feature_extractor(flat, train, shard=shard)
         return feats.reshape(b, n, -1).float()
@@ -180,25 +234,9 @@ class RelPoseGNN(nn.Module):
 
     def _dropout(self, x: torch.Tensor, generator: torch.Generator | None,
                  shard=None) -> torch.Tensor:
-        """flax `nn.Dropout`: keep with probability 1 - rate and scale
-        what is kept by 1 / (1 - rate); the mask is drawn from
-        `generator`, for the global batch of `shard`'s ranks (this rank's
-        rows of it kept) where a shard is given."""
-        if generator is None:
-            raise ValueError("dropout is active (train=True or "
-                             "eval_dropout=True with droprate > 0) and "
-                             "needs a torch.Generator")
-        keep_prob = 1.0 - self.cfg.droprate
-        if keep_prob == 0.0:
-            return torch.zeros_like(x)
-        shape = x.shape if shard is None else (
-            (shard.size * x.shape[0],) + tuple(x.shape[1:]))
-        keep = torch.rand(shape, generator=generator,
-                          device=generator.device) < keep_prob
-        if shard is not None:
-            keep = keep[shard.rows(x.shape[0])]
-        return torch.where(keep.to(x.device), x / keep_prob,
-                           torch.zeros_like(x))
+        """`dropout` at the config's rate (one method, so that a test can
+        put another framework's masks in its place)."""
+        return dropout(x, self.cfg.droprate, generator, shard)
 
     def from_embeddings(self, x: torch.Tensor, adj: torch.Tensor,
                         train: bool = False,
@@ -216,14 +254,15 @@ class RelPoseGNN(nn.Module):
         x_pre_gnn = x
 
         edges = None
+        use_compact = c.compact_edges and c.use_gnn
         if c.knn > 0:
-            if c.compact_edges:
+            if use_compact:
                 adj, src, tgt = graph_ops.knn_edge_list(x, c.knn)
                 edges = (src, tgt, torch.ones(src.shape, dtype=torch.bool,
                                               device=src.device))
             else:
                 adj = graph_ops.knn_adjacency(x, c.knn)
-        elif c.compact_edges:
+        elif use_compact:
             edges = graph_ops.adj_edge_list(adj)
 
         if edges is not None:
@@ -232,11 +271,14 @@ class RelPoseGNN(nn.Module):
             e = graph_ops.edge_pair_features(x)
         e = F.relu(self._proj_edge(e))
 
-        for r in range(c.gnn_recursion):
-            layer = getattr(self, f"gnn{r % c.num_gnn_layers + 1}")
-            x, e = layer(x, e, adj, edges=edges)
-            x = F.relu(x)
-            e = F.relu(e)
+        if c.use_gnn:
+            for r in range(c.gnn_recursion):
+                layer = getattr(self, f"gnn{r % c.num_gnn_layers + 1}")
+                x, e = layer(x, e, adj, edges=edges)
+                x = F.relu(x)
+                e = F.relu(e)
+        else:
+            e = self.mlp(e)
 
         if c.droprate > 0 and (train or c.eval_dropout):
             drop = (self._dropout if shard is None
@@ -244,8 +286,10 @@ class RelPoseGNN(nn.Module):
             x = drop(x, generator)
             e = drop(e, generator)
 
-        pred_abs = torch.cat([dense(x, self.fc_xyz),
-                              dense(x, self.fc_wpqr)], dim=-1)
+        # use_ap=False: the absolute heads on pair features, [B, N, N, 6]
+        xa = x if c.use_ap else graph_ops.edge_pair_features(x)
+        pred_abs = torch.cat([dense(xa, self.fc_xyz),
+                              dense(xa, self.fc_wpqr)], dim=-1)
         pred_rel = torch.cat([dense(e, self.fc_xyz_R),
                               dense(e, self.fc_wpqr_R)], dim=-1)
         if edges is not None:
@@ -273,19 +317,42 @@ def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
     return (torch.erfinv(u) * math.sqrt(2.0)).clamp_(-2.0, 2.0)
 
 
+def _lecun_normal_(w: torch.Tensor, generator: torch.Generator,
+                   fan_in: int) -> None:
+    w.copy_(_truncated_normal(w.shape, generator)
+            / (_TRUNC_STD * math.sqrt(fan_in)))
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights as flax initialises the JAX model: every conv
     and linear weight from `lecun_normal` (a normal truncated at two
     standard deviations, scaled to variance 1/fan_in), biases zero, BN at
-    its identity (scale 1, shift 0, running mean 0, var 1).  Draws on the
-    generator's device, in module order."""
+    its identity (scale 1, shift 0, running mean 0, var 1), LayerNorm at
+    scale 1 and shift 0; the ViT's `pos_embed` from normal(0.02), its CLS
+    token zero, LayerScale gammas one; an LSTM as flax's
+    `OptimizedLSTMCell`: each gate's input kernel `lecun_normal`, its
+    hidden kernel orthogonal, biases zero.  Draws on the generator's
+    device, in module order."""
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
-            fan_in = m.weight[0].numel()
-            w = _truncated_normal(m.weight.shape, generator)
-            m.weight.copy_(w / (_TRUNC_STD * math.sqrt(fan_in)))
+            _lecun_normal_(m.weight, generator, m.weight[0].numel())
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.reset_parameters()
+        elif isinstance(m, ViTEncoder):
+            m.cls_token.zero_()
+            m.pos_embed.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(m, LayerScale):
+            m.gamma.fill_(1.0)
+        elif isinstance(m, nn.LSTM):
+            for name, p in m.named_parameters():
+                if name.startswith("bias"):
+                    p.zero_()
+                    continue
+                for gate in p.chunk(4, dim=0):      # i, f, g, o
+                    if name.startswith("weight_ih"):
+                        _lecun_normal_(gate, generator, gate.shape[1])
+                    else:
+                        nn.init.orthogonal_(gate, generator=generator)

@@ -14,6 +14,13 @@ loads the `feature_extractor.*` part of a PoseNetX_R2 state dict.
   and `fc` run in float32, as in the JAX module.
 * `folded=True` is the serving form: BN folded into the convs
   (models/fold_bn.py), convs carry a bias, no BN modules.
+* `s2d_stem=True` is the space-to-depth form of the 7x7/s2 stem: 2x2
+  pixel blocks packed into 4 x in_channels channels, a 4x4/s1 `conv1`
+  (the 7x7 kernel padded to 8x8 and regrouped by
+  `fold_bn.py::space_to_depth_conv1`) with padding ((2, 1), (2, 1)).
+  The same function as the 7x7 stem up to float summation order.
+* `in_channels` is 3 but for the pair encoders (6: two images
+  channel-concatenated); the keys are the same.
 * BatchNorm has flax's semantics in both modes.  It normalises in
   float32 whatever the compute dtype and casts the result to it.  Eval
   (`train=False`) uses the float32 running statistics as they are (no
@@ -109,6 +116,17 @@ def _bn(x: torch.Tensor, bn: nn.BatchNorm2d | None, train: bool = False,
     return y.to(x.dtype)
 
 
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """NHWC [B, H, W, C] -> [B, ceil(H/2), ceil(W/2), 4C]: each 2x2 pixel
+    block packed into channels (dy * 2C + dx * C + c), an odd extent
+    padded with a zero row or column first (the JAX stem's packing)."""
+    b, h, w, c = x.shape
+    x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
+    h2, w2 = (h + h % 2) // 2, (w + w % 2) // 2
+    x = x.reshape(b, h2, 2, w2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h2, w2, 4 * c)
+
+
 class BasicBlock(nn.Module):
     """torchvision BasicBlock: 3x3-BN-ReLU-3x3-BN + projection shortcut."""
 
@@ -150,10 +168,14 @@ class ResNet(nn.Module):
     them over the global batch of its ranks."""
 
     def __init__(self, stage_sizes: Sequence[int], feat_dim: int = 2048,
-                 dtype: torch.dtype | None = None, folded: bool = False):
+                 dtype: torch.dtype | None = None, folded: bool = False,
+                 s2d_stem: bool = False, in_channels: int = 3):
         super().__init__()
         self.dtype = dtype
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=folded)
+        self.s2d_stem = s2d_stem
+        self.conv1 = (nn.Conv2d(4 * in_channels, 64, 4, 1, bias=folded)
+                      if s2d_stem else
+                      nn.Conv2d(in_channels, 64, 7, 2, 3, bias=folded))
         self.bn1 = None if folded else nn.BatchNorm2d(64, eps=_BN_EPS)
         in_planes = 64
         for stage, num_blocks in enumerate(stage_sizes):
@@ -169,7 +191,11 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 update_stats: bool = True, shard=None) -> torch.Tensor:
-        x = x.to(self.dtype or x.dtype).permute(0, 3, 1, 2)  # NCHW view
+        x = x.to(self.dtype or x.dtype)
+        if self.s2d_stem:
+            x = F.pad(space_to_depth(x).permute(0, 3, 1, 2), (2, 1, 2, 1))
+        else:
+            x = x.permute(0, 3, 1, 2)  # NCHW view
         x = F.relu(_bn(_conv(x, self.conv1), self.bn1, train, update_stats,
                        shard))
         # pads with -inf, like flax max_pool's padding=((1, 1), (1, 1))

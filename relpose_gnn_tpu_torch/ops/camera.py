@@ -3,7 +3,8 @@
 Port of `crop_by_intrinsic` from `relpose_gnn_tpu/ops/camera.py`, which
 the raw-frame NetVLAD preprocessing needs.  The rest of the JAX module
 (the batched camera geometry, the scene and query preprocessing) is in
-ROADMAP.md, 'Modules to port', the rest of the model zoo.
+ROADMAP.md, 'Modules to port', slice 8b (geometry and classical
+retrieval).
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ Port of the quaternion part of `relpose_gnn_tpu/ops/pose.py` (`vdot` to
 rotation-matrix conversions and host pose preprocessing (`mat2quat`,
 `quat2mat`, `process_poses*`), which the loaders need.  The rest of the
 JAX module (the `calc_vo*` family, angular errors, alignment) is in
-ROADMAP.md, 'Modules to port', the rest of the model zoo.
+ROADMAP.md, 'Modules to port', slice 8b (geometry and classical
+retrieval).
 
 Conventions, as in the JAX module: quaternions are [w, x, y, z] (scalar
 first); a pose7 is [t(3), q(4)].  Every function is batched over leading

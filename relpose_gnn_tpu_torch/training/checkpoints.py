@@ -13,7 +13,12 @@ place of Orbax:
     statistics) from a reference `.pth.tar`, `strict=True`; the optimizer
     stays fresh, as train.py:214-219 does.
   * `save_torch_checkpoint` writes the reference schema (utils.py:22-31),
-    the same file the JAX package's `save_torch_checkpoint` writes.
+    the same file the JAX package's `save_torch_checkpoint` writes; a ViT
+    backbone has no place in it and is refused, as the JAX exporter
+    refuses it (its train state saves through `save_checkpoint`).
+  * `load_vit_weights` warm-starts a ViT-backbone model's `encoder.*`
+    from a timm/DINOv2 state dict (models/convert.py::convert_vit),
+    leaving the port's `encoder.fc` head at its init.
 
 The port cannot read the JAX package's Orbax directories, and says so when
 asked to.
@@ -27,6 +32,7 @@ import shutil
 
 import torch
 
+from relpose_gnn_tpu_torch.models.convert import convert_vit
 from relpose_gnn_tpu_torch.training.trainer import TrainState
 
 _FILE = "train_state.pt"
@@ -131,6 +137,13 @@ def save_torch_checkpoint(state: TrainState, path: str, epoch: int,
     (train.py:214-219 loads weights only), as in the JAX exporter.  If
     `path` is a directory, the file is `epoch_{:03d}.pth.tar` inside it.
     Returns the written path."""
+    if getattr(state.model, "cfg", None) is not None \
+            and state.model.cfg.backbone == "vit":
+        raise ValueError(
+            "a ViT backbone has no place in the reference PoseNetX_R2 "
+            "schema (only the ResNet-backbone RelPoseGNN family is "
+            "representable there, as the JAX exporter says); save the "
+            "train state with save_checkpoint")
     if osp.isdir(path):
         path = osp.join(path, "epoch_{:03d}.pth.tar".format(epoch))
     model_sd = {k: v.detach().cpu().contiguous()
@@ -150,3 +163,47 @@ def save_torch_checkpoint(state: TrainState, path: str, epoch: int,
                 "optim_state_dict": optim_sd,
                 "criterion_state_dict": crit_sd}, path)
     return path
+
+
+def load_vit_weights(state: TrainState, pth_path: str, heads: int = 12,
+                     grid_hw: tuple[int, int] | None = None) -> TrainState:
+    """Warm-start a ViT-backbone model's encoder (`state.model.encoder`)
+    from a timm/DINOv2-style checkpoint (models/convert.py::convert_vit).
+
+    The `fc` projection head has no pretrained counterpart and stays as it
+    is; every other encoder tensor must be covered exactly, as the JAX
+    `load_vit_weights` holds it: LayerScale gammas on a model built
+    without them raise, and so does any key of the encoder left uncovered,
+    any checkpoint key it lacks and any shape that differs.  `grid_hw`
+    resizes the checkpoint's `pos_embed` to the model's patch grid (needed
+    whenever the sizes differ: a 224px table loaded at 256x341/p16 needs
+    grid_hw=(16, 21))."""
+    sd, layer_scale = convert_vit(read_state_dict(pth_path), heads=heads,
+                                  grid_hw=grid_hw)
+    enc = state.model.encoder
+    own = enc.state_dict()
+    if layer_scale and "blocks.0.ls1.gamma" not in own:
+        raise ValueError(
+            "checkpoint carries DINOv2 LayerScale gammas but the model "
+            "was built without them — set "
+            "RelPoseGNNConfig.vit_layer_scale=True (or "
+            "ViTEncoder(layer_scale=True)) and rebuild")
+    for k, v in sd.items():
+        if k not in own:
+            raise ValueError(
+                f"checkpoint key {k} does not exist in the built ViT "
+                "encoder — depth/width/layer-scale config mismatch")
+        if tuple(own[k].shape) != tuple(v.shape):
+            raise ValueError(
+                f"shape mismatch at {k}: model {tuple(own[k].shape)} vs "
+                f"checkpoint {tuple(v.shape)}"
+                + (" — pass grid_hw to interpolate pos_embed"
+                   if k == "pos_embed" else ""))
+    missing = sorted(set(own) - set(sd))
+    if missing != ["fc.bias", "fc.weight"]:
+        raise ValueError(
+            "checkpoint does not cover the built encoder: missing "
+            f"{[m for m in missing if not m.startswith('fc.')][:6]} "
+            "(only the from-scratch fc head may be uncovered)")
+    enc.load_state_dict(sd, strict=False)
+    return state

@@ -192,14 +192,19 @@ def load_datasets(cfg: ExperimentConfig):
 
 
 def build_model(cfg: ExperimentConfig,
-                device: torch.device | str | None = None) -> RelPoseGNN:
+                device: torch.device | str | None = None,
+                image_hw: tuple[int, int] | None = None) -> RelPoseGNN:
     """The preset (R1/R2/R3, else R3) with the experiment's overrides, on
-    `device` (None: the card), weights drawn from `cfg.seed`."""
+    `device` (None: the card), weights drawn from `cfg.seed`;
+    `cfg.backbone` picks the node encoder.  `image_hw` is the frames'
+    size, which a ViT's position table is built for (default 256x341)."""
     device = resolve_device(device)
     overrides = dict(num_nodes=cfg.seq_len, knn=cfg.knn,
                      droprate=cfg.droprate, gnn_recursion=cfg.gnn_recursion,
                      dtype=torch.bfloat16 if cfg.dtype == "bfloat16"
                      else None, backbone=cfg.backbone)
+    if image_hw is not None:
+        overrides["vit_image_hw"] = tuple(image_hw)
     if cfg.feat_dim:
         overrides.update(feat_dim=cfg.feat_dim, edge_dim=cfg.feat_dim,
                          node_dim=cfg.feat_dim)
@@ -210,6 +215,21 @@ def build_model(cfg: ExperimentConfig,
         model = RelPoseGNN(mcfg)
     init_weights(model, torch.Generator(device=device).manual_seed(cfg.seed))
     return model
+
+
+def vit_image_hw(cfg: ExperimentConfig, *datasets) -> tuple | None:
+    """The (height, width) of the packed stores' frames, which a ViT
+    backbone's position table is built for (all must agree); None for
+    the other backbones."""
+    if cfg.backbone != "vit":
+        return None
+    sizes = set()
+    for ds in datasets:
+        for d in getattr(ds, "datasets", [ds]):
+            sizes.add((d.meta["height"], d.meta["width"]))
+    if len(sizes) != 1:
+        raise ValueError(f"stores of several frame sizes: {sorted(sizes)}")
+    return sizes.pop()
 
 
 def pose_stats(cfg: ExperimentConfig):
@@ -328,7 +348,9 @@ def run_training(cfg: ExperimentConfig,
         logger.info("training feed: numpy memmaps (native graphio does "
                     "not build here)")
     tcfg = _trainer_config(cfg, max(1, len(train_ds) // batch_size))
-    state = create_train_state(build_model(cfg, device), tcfg)
+    state = create_train_state(build_model(cfg, device,
+                                           vit_image_hw(cfg, train_ds)),
+                               tcfg)
     if cfg.weights_filename and osp.isfile(cfg.weights_filename):
         ckpt.load_torch_weights(state, cfg.weights_filename)
         logger.info("Loaded weights from %s", cfg.weights_filename)
@@ -470,7 +492,9 @@ def run_eval(cfg: ExperimentConfig, weights: str | None = None,
     main = is_main_process()
     logger = get_logger(logfile=str(logdir / "eval.log") if main else None)
     test_ds = load_test_datasets(cfg)
-    state = create_train_state(build_model(cfg, device), _trainer_config(cfg))
+    state = create_train_state(
+        build_model(cfg, device, vit_image_hw(cfg, *test_ds.values())),
+        _trainer_config(cfg))
     weights = weights or cfg.weights_filename
     if weights:
         if osp.isfile(weights) and weights.endswith(

@@ -113,3 +113,30 @@ def test_kernel_rows_are_independent_on_cuda(cuda_device, dtype):
         part = att_core.attention_core(
             *[a[lo:hi].contiguous() for a in args])
         assert torch.equal(part, big[lo:hi])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e", [1, 32, 8192])
+def test_attention_block_at_the_zoo_shapes_on_cuda(cuda_device, e):
+    """`AttentionBlock(2048)` (C = 256) at AtLoc's rows (E = the batch, as
+    few as 1) and R3-32's (E = B 32 4 = 8192 at batch 64): the kernel
+    against the plain core swapped in, float32."""
+    from unittest import mock
+
+    from relpose_gnn_tpu_torch.models.attention import AttentionBlock
+    from relpose_gnn_tpu_torch.models.posenet import init_weights
+
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    with torch.device(cuda_device):
+        block = AttentionBlock(2048)
+    init_weights(block, gen)
+    x = torch.randn(e, 2048, device=cuda_device, generator=gen)
+    before = att_core.LAUNCHES
+    with torch.no_grad():
+        got = block(x)
+        with mock.patch.object(att_core, "attention_core",
+                               att_core.attention_core_plain):
+            want = block(x)
+    torch.cuda.synchronize()
+    assert att_core.LAUNCHES == before + 1
+    torch.testing.assert_close(got, want, **TOL)

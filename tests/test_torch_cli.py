@@ -11,6 +11,8 @@ tiny packed stores (4-node graphs at 32x40, resnet18, dims 32).
     checkpoint; the test entry's medians equal `run_eval` on the same
     weights exactly (the same float32 CPU computation), and the saved
     weights load into the port's model with strict=True.
+  * `--backbone vit` trains, checkpoints and evaluates R3 with the ViT
+    node encoder (at a tiny width: see `TinyViT`).
   * Every flag whose work the port does not have yet raises
     NotImplementedError before anything runs, and the multi-process flags
     refuse what cannot run (a process id outside the job, processes
@@ -35,6 +37,9 @@ from relpose_gnn_tpu_torch.cli import serve as cli_serve
 from relpose_gnn_tpu_torch.cli import test as cli_test
 from relpose_gnn_tpu_torch.cli import train as cli_train
 from relpose_gnn_tpu_torch.data.packed import PackedGraphWriter
+from relpose_gnn_tpu_torch.models import posenet as posenet_mod
+from relpose_gnn_tpu_torch.models import vit as vit_mod
+from relpose_gnn_tpu_torch.training import checkpoints as ckpt
 from relpose_gnn_tpu_torch.training import experiment as exp
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
@@ -256,8 +261,6 @@ def _orbax_dir(tmp_path):
                  id="no-coordinator"),
     pytest.param(["--mesh-data", "2"], ValueError, "needs 2 ranks",
                  id="mesh-over-world"),
-    pytest.param(["--backbone", "vit"], NotImplementedError, "slice 8",
-                 id="vit"),
     pytest.param(["--weights-filename", "ORBAX"], NotImplementedError,
                  "save_torch_checkpoint", id="orbax"),
     pytest.param(["--mesh-data", "1", "--mesh-model", "2"], ValueError,
@@ -279,8 +282,6 @@ def test_train_entry_refuses_unported_flags(stores, tmp_path, extra, error,
 @pytest.mark.parametrize("extra,error,match", [
     pytest.param(["--mesh-data", "2"], ValueError, "needs 2 ranks",
                  id="mesh-over-world"),
-    pytest.param(["--backbone", "vit"], NotImplementedError, "slice 8",
-                 id="vit"),
     pytest.param(["--weights-filename", "ORBAX"], NotImplementedError,
                  "save_torch_checkpoint", id="orbax"),
 ])
@@ -292,6 +293,86 @@ def test_test_entry_refuses_unported_flags(stores, tmp_path, extra, error,
     with pytest.raises(error, match=match):
         cli_test.main(argv)
     assert not (tmp_path / "out").exists()
+
+
+class TinyViT(vit_mod.ViTEncoder):
+    """The ViT encoder at a tiny width (patch 16, dim 32, depth 2, heads
+    2): `--backbone vit` builds ViT-B/16, whose 86M parameters and their
+    Adam moments would make each checkpoint a gigabyte on the CPU."""
+
+    def __init__(self, feat_dim=2048, patch=16, dim=768, depth=12,
+                 heads=12, dtype=None, layer_scale=False,
+                 image_hw=(256, 341)):
+        super().__init__(feat_dim, 16, 32, 2, 2, dtype, layer_scale,
+                         image_hw)
+
+
+@pytest.fixture(scope="module")
+def trained_vit(stores, tmp_path_factory):
+    """cli.train --backbone vit (the tiny ViT) for one epoch (2 steps) with
+    a checkpoint after it and an eval; returns (out, save_dir)."""
+    save = str(tmp_path_factory.mktemp("out-vit"))
+    mp = pytest.MonkeyPatch()
+    mp.setattr(posenet_mod, "ViTEncoder", TinyViT)
+    tiny = [a if a != "resnet18" else "vit" for a in TINY]
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = cli_train.main([
+            "--dataset", "7Scenes", "--experiment", "2", "--train-scene",
+            "chess", "--test-scene", "chess", "--train-data-dir", stores,
+            "--test-data-dir", stores, "--save-dir", save, "--max-epoch",
+            "1", "--ckpt-every", "1", "--eval-after-epoch", "-1",
+            "--device", "cpu", *tiny])
+    yield out, save, tiny
+    mp.undo()
+
+
+def test_train_entry_runs_the_vit_backbone(trained_vit, monkeypatch,
+                                           tmp_path):
+    """`--backbone vit` trains R3 with the ViT node encoder, sized for the
+    stores' 32x40 frames (a 2x2 patch grid), and checkpoints it: the
+    saved train state loads with strict=True into the model `cli.test`
+    builds; the reference `.pth.tar` has no place for it and refuses."""
+    out, save, _ = trained_vit
+    monkeypatch.setattr(posenet_mod, "ViTEncoder", TinyViT)
+    state = out["state"]
+    assert state.step == 2 and state.model.cfg.backbone == "vit"
+    assert state.model.cfg.vit_image_hw == (H, W)
+    best = out["best"]["chess"]
+    assert np.isfinite(best["median_t"]) and np.isfinite(best["median_q"])
+    sd = torch.load(osp.join(_ckdir(save), "0", "train_state.pt"),
+                    map_location="cpu", weights_only=True)
+    assert "encoder.blocks.1.attn.qkv.weight" in sd["model"]
+    model = exp.build_model(exp.ExperimentConfig(
+        backbone="vit", feat_dim=32, seq_len=N, knn=2, dtype="float32"),
+        "cpu", image_hw=(H, W))
+    model.load_state_dict(sd["model"], strict=True)
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v), k
+    with pytest.raises(ValueError, match="ViT"):
+        ckpt.save_torch_checkpoint(state, str(tmp_path), 0)
+
+
+def test_test_entry_runs_the_vit_backbone(trained_vit, stores, tmp_path,
+                                          monkeypatch):
+    """`cli.test --backbone vit` on the ViT run's checkpoint equals
+    `run_eval` on the same weights."""
+    _, save, tiny = trained_vit
+    monkeypatch.setattr(posenet_mod, "ViTEncoder", TinyViT)
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = cli_test.main([
+            "--dataset", "7Scenes", "--test-scene", "chess",
+            "--test-data-dir", stores, "--save-dir", str(tmp_path),
+            "--weights-filename", _ckdir(save), "--device", "cpu", *tiny])
+    want = exp.run_eval(exp.ExperimentConfig(
+        dataset="7Scenes", test_scene="chess", train_scene="chess",
+        experiment=2, train_data_dir=stores, test_data_dir=stores,
+        save_dir=str(tmp_path / "ref"), exp_name="eval", backbone="vit",
+        feat_dim=32, seq_len=N, knn=2, dtype="float32", batch_size=4),
+        weights=_ckdir(save), save_predictions=False, device="cpu")
+    g, w = got["chess"], want["chess"]
+    assert (g.median_t, g.median_q) == (w.median_t, w.median_q)
+    np.testing.assert_array_equal(g.pred_poses, w.pred_poses)
+    assert np.isfinite(g.pred_poses).all()
 
 
 def test_orbax_refusal_names_the_pth_tar_exporter(tmp_path):

@@ -170,18 +170,6 @@ def test_config_fields_roots_and_anchors_match_jax():
             jax_exp.static_anchor_for(jax_exp.ExperimentConfig(**kw))
 
 
-@pytest.mark.parametrize("kw,what", [
-    pytest.param(dict(backbone="vit"), "the rest of the model zoo",
-                 id="vit"),
-])
-def test_later_slices_raise_naming_the_roadmap(stores, tmp_path, kw, what):
-    root, _ = stores
-    cfg = tiny_cfg(root, save_dir=str(tmp_path), **kw)
-    for entry in (exp.run_training, exp.run_eval):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            entry(cfg, device="cpu")
-
-
 def test_entry_points_refuse_to_run_without_a_card(stores, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: device=None means it")

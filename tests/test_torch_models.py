@@ -231,22 +231,16 @@ def test_from_embeddings(jax_variables, cfg_kw):
                                    **TOL, err_msg=k)
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(use_ap=False), "use_ap"),
-    (dict(backbone="vit"), "backbone"),
-    (dict(use_gnn=False), "use_gnn"),
-])
-def test_unported_options_raise_naming_the_roadmap(kw, what):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        RelPoseGNN(RelPoseGNNConfig(**_cfg_kwargs(**kw)))
-
-
 def test_presets_mirror_jax():
-    for name in ("R1", "R2", "R3"):
+    """Every field of every preset (the stretch R3-vit and R3-32 too) is
+    the JAX config's, but the compute dtype (a torch dtype here) and the
+    port's `vit_image_hw` (flax sizes the ViT from its init batch)."""
+    for name in ("R1", "R2", "R3", "R3-vit", "R3-32"):
         got = dataclasses.asdict(RelPoseGNNConfig.preset(name))
         want = dataclasses.asdict(JaxConfig.preset(name))
-        assert {k: v for k, v in got.items() if k != "dtype"} == \
-            {k: want[k] for k in got if k != "dtype"}
+        own = ("dtype", "vit_image_hw")
+        assert {k: v for k, v in got.items() if k not in own} == \
+            {k: v for k, v in want.items() if k != "dtype"}
 
 
 def test_init_weights_is_seeded_and_lecun_scaled():

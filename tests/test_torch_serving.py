@@ -274,7 +274,9 @@ def test_port_and_chip_smoke_never_import_jax():
         "             'cli.build_graphs', 'cli.serve', 'cli.parity',\n"
         "             'cli.compute_pose_stats', 'parallel.mesh',\n"
         "             'parallel.multihost', 'parallel.sharding',\n"
-        "             'parallel.sharded_db'):\n"
+        "             'parallel.sharded_db', 'models.vit', 'models.atloc',\n"
+        "             'models.legacy', 'models.pair_encoder',\n"
+        "             'models.zoo'):\n"
         "    assert 'relpose_gnn_tpu_torch.' + tail in sys.modules, tail\n"
         "print('clean')\n")])
     assert proc.returncode == 0, proc.stderr
