@@ -184,6 +184,28 @@ is no CPU fallback: without CUDA it exits 1 at once.
             decode and resize rates; loader mode 2 (colour and 16-bit
             depth, no PIL on the card's host) over chess's train split
             with a depth PNG written beside every frame
+  geo       (after `raw`) geometry, classical retrieval and the tooling,
+            each step on the card (float32) against the same port function
+            on the CPU in float64 (GEO_REL_TOL, GEO_DEG_TOL, PGO_TOL,
+            VLAD_CARD_TOL): a VLAD index at Cambridge's scale (GreatCourt's
+            1532 train images x 500 seeded byte descriptors, 16 words x 32,
+            centers seeded rows of them) built on the card, 100 queries'
+            top-10 orders equal to the CPU's, the assignments whose two
+            nearest centers tie counted, a save / load round trip,
+            `cli.vlad_export --format distances` on the card; the pose and
+            camera functions, `decode_depth_mm` and `preprocess_scene` on a
+            480x640 16-bit depth PNG decoded by `image_io`; `cli.test` (R3
+            bf16, seeded weights, batch 64) over 128 query graphs along a
+            seeded trajectory, its exported poses through `optimize_poses`
+            chained over all 128 and `optimize_pose_graph` fully connected
+            over the first 64 (VOs from the targets), then
+            `align_camera_poses` to the targets, median errors before and
+            after printed (facts, not claims); `cli.serve --trace-dir` on
+            one synthetic scene (16 queries, batch 8): the Chrome trace
+            parses and names `att_core_kernel` as many times as the call
+            launched it; `StepTimer` over 6 cached eval steps;
+            `seed_everything`'s CUDA generator; `FrameworkConfig` with
+            bfloat16 through JSON; launches under `geo ...` keys
   multi     several GPUs (parallel/): one NCCL rank in this process
             (FileStore, world 1) runs R3 bf16 `run_training` (batch 8, 8
             steps + an eval) under DistributedDataParallel over the 1x1
@@ -264,7 +286,9 @@ from unittest import mock
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_leaves
 
+from relpose_gnn_tpu_torch import config
 from relpose_gnn_tpu_torch.benchmarks import (_synthetic, _util,
                                               bench_att_core, bench_att_exp2,
                                               bench_att_variants,
@@ -280,6 +304,7 @@ from relpose_gnn_tpu_torch.cli import parity as cli_parity
 from relpose_gnn_tpu_torch.cli import serve as cli_serve
 from relpose_gnn_tpu_torch.cli import test as cli_test
 from relpose_gnn_tpu_torch.cli import train as cli_train
+from relpose_gnn_tpu_torch.cli import vlad_export as cli_vlad_export
 from relpose_gnn_tpu_torch.data import image_io, native_io, synthetic_scenes
 from relpose_gnn_tpu_torch.data.device_cache import DeviceCachedFeed
 from relpose_gnn_tpu_torch.data.graph_builder import (GraphBuilderConfig,
@@ -306,11 +331,13 @@ from relpose_gnn_tpu_torch.models.gnn import ConvMapGNN
 from relpose_gnn_tpu_torch.models.posenet import (RelPoseGNN,
                                                   RelPoseGNNConfig,
                                                   init_weights)
-from relpose_gnn_tpu_torch.ops import _build, att_core, att_variants, pair_mlp
+from relpose_gnn_tpu_torch.ops import (_build, align, att_core, att_variants,
+                                       camera, pair_mlp, pgo)
 from relpose_gnn_tpu_torch.ops import pose as pose_ops
 from relpose_gnn_tpu_torch.retrieval.netvlad_index import (IMAGENET_MEAN,
                                                            IMAGENET_STD,
                                                            NetVLADIndex)
+from relpose_gnn_tpu_torch.retrieval import vlad
 from relpose_gnn_tpu_torch.retrieval.subsample import fold_in
 from relpose_gnn_tpu_torch.parallel.mesh import create_mesh
 from relpose_gnn_tpu_torch.training import experiment as experiment_mod
@@ -325,6 +352,7 @@ from relpose_gnn_tpu_torch.training.trainer import (TrainerConfig,
                                                     create_train_state,
                                                     loss_fn, make_eval_step,
                                                     make_train_step)
+from relpose_gnn_tpu_torch.utils import profiling, seeding
 
 SEED = 0
 # attention kernel vs plain version.  y is a ratio of two sums of C
@@ -3533,6 +3561,458 @@ def run_raw(dev, root: str, sizes: RawSizes) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# geometry, classical retrieval and the tooling
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class GeoSizes:
+    """What phase `geo` runs.  The VLAD index is at Cambridge's scale:
+    GreatCourt's train split (1532 images), the CLI's 16 visual words over
+    32-byte ORB descriptors (512-D VLAD vectors) and ORB's 500
+    descriptors an image; the R3 eval whose poses feed PGO and the
+    alignment serves `test_graphs` queries of 8-node graphs at 256x341."""
+    vlad_db: int = 1532
+    vlad_queries: int = 100
+    vlad_words: int = 16
+    desc_dim: int = 32
+    desc_per_image: int = 500
+    topk: int = 10
+    export_rows: int = 256
+    test_graphs: int = 128
+    eval_batch: int = 64
+    fc_nodes: int = 64
+    serve_frames: int = 16
+    serve_batch: int = 8
+    timer_steps: int = 6
+    timer_batch: int = 16
+
+
+# card float32 against the same port function on the CPU in float64: the
+# largest gap over the outputs, over max(1, the largest |value|)
+GEO_REL_TOL = 1e-5
+GEO_DEG_TOL = 1e-3      # angles in degrees (arccos amplifies the rounding)
+PGO_TOL = 1e-4          # 10 Gauss-Newton steps, and the alignment after
+VLAD_CARD_TOL = 1e-5    # VLAD vectors and similarities
+
+
+def _as(dev, dtype):
+    """numpy arrays -> tensors on `dev`, floating ones in `dtype`."""
+    def conv(a):
+        if not isinstance(a, np.ndarray):
+            return a
+        t = torch.from_numpy(a)
+        return t.to(dev, dtype) if t.is_floating_point() else t.to(dev)
+    return conv
+
+
+def card_vs_cpu64(dev, fn, *args) -> float:
+    """fn on the card in float32 against fn on the CPU in float64, on the
+    same numpy inputs: the largest |gap| over max(1, |reference|) of its
+    floating outputs; any other output (a mask) must be equal."""
+    got = tree_leaves(fn(*map(_as(dev, torch.float32), args)))
+    want = tree_leaves(fn(*map(_as("cpu", torch.float64), args)))
+    check(len(got) == len(want), "card and CPU outputs differ in number")
+    gap = 0.0
+    for g, w in zip(got, want):
+        g = g.cpu()
+        if not w.is_floating_point():
+            check(torch.equal(g, w), "a non-float output differs between "
+                  "the card and the CPU")
+            continue
+        scale = max(1.0, float(w.abs().max()))
+        gap = max(gap, float((g.double() - w).abs().max()) / scale)
+    return gap
+
+
+def geo_vlad(dev, root: str, sizes: GeoSizes) -> dict:
+    """VLAD at Cambridge scale: the index built and queried on the card
+    against the same functions in float64 on the CPU, its near-tie
+    assignments counted, a save / load round trip, `cli.vlad_export
+    --format distances` on the card.  Returns build and query ms."""
+    rng = np.random.default_rng(SEED + 40)
+    m, p, d, k = (sizes.vlad_db, sizes.desc_per_image, sizes.desc_dim,
+                  sizes.vlad_words)
+    db = rng.integers(0, 256, (m, p, d), dtype=np.uint8).astype(np.float32)
+    centers = db.reshape(-1, d)[rng.choice(m * p, k, replace=False)]
+    queries = rng.integers(0, 256, (sizes.vlad_queries, p, d),
+                           dtype=np.uint8).astype(np.float32)
+
+    index = vlad.VLADIndex(centers, device=dev)
+    index.build(list(db[:8]))                          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.build(list(db))
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    # the same function on the CPU in float64; descriptors and centers are
+    # bytes, so the squared distances are exact integers in both, a tie
+    # exact, and the lower center takes it on both sides
+    c64 = torch.from_numpy(centers).double()
+    ref = torch.cat([vlad.vlad_aggregate(torch.from_numpy(db[i:i + 256])
+                                         .double(), c64)
+                     for i in range(0, m, 256)])
+    x = torch.from_numpy(db.reshape(-1, d)).double()
+    d2 = ((x * x).sum(1)[:, None] - 2.0 * x @ c64.T
+          + (c64 * c64).sum(1))                   # exact integers
+    best2 = torch.topk(d2, 2, largest=False).values
+    ties = int((best2[:, 0] == best2[:, 1]).sum())
+    near = int(((best2[:, 1] - best2[:, 0]) <= 1.0).sum())
+    gap = float((index.table.cpu().double() - ref).abs().max())
+    check(gap <= VLAD_CARD_TOL, f"VLAD table: card float32 vs CPU float64 "
+          f"gap {gap}")
+
+    times, same = [], 0
+    gaps = []
+    for q in queries:
+        t0 = time.perf_counter()
+        scores, idx = index.query(q, sizes.topk)
+        times.append((time.perf_counter() - t0) * 1e3)
+        qref = vlad.vlad_aggregate(torch.from_numpy(q).double(), c64)
+        sim = ref @ qref
+        order = torch.sort(sim, descending=True, stable=True).indices
+        same += int(np.array_equal(idx, order[:sizes.topk].numpy()))
+        top = sim[order[:sizes.topk + 1]]
+        gaps.append(float((top[:-1] - top[1:]).min()))
+        check(float(np.abs(scores - sim[idx].numpy()).max())
+              <= VLAD_CARD_TOL, "VLAD query scores differ from the CPU's")
+    check(same == len(queries), f"top-{sizes.topk} order equal to the "
+          f"CPU's for {same} of {len(queries)} queries")
+
+    path = osp.join(root, "vlad.pkl")
+    index.save(path)
+    loaded = vlad.VLADIndex.load(path, device=dev)
+    check(np.array_equal(loaded.descriptors, index.descriptors)
+          and np.array_equal(loaded.centers, index.centers)
+          and np.array_equal(loaded.query(queries[0], sizes.topk)[1],
+                             index.query(queries[0], sizes.topk)[1]),
+          "the VLAD index differs after a save / load round trip")
+    sub = osp.join(root, "vlad_sub.pkl")
+    vlad.VLADIndex(centers, index.descriptors[:sizes.export_rows],
+                   device="cpu").save(sub)
+    t0 = time.perf_counter()
+    out = cli_vlad_export.main(["--index", sub, "--output",
+                                osp.join(root, "dist"), "--format",
+                                "distances"])
+    export_s = time.perf_counter() - t0
+    dist = np.loadtxt(out, delimiter=",")
+    r = ref[:sizes.export_rows]
+    want = torch.cdist(r, r).numpy()
+    dgap = float(np.abs(dist - want).max())
+    check(dist.shape == want.shape and (np.diag(dist) == 0).all()
+          and dgap <= 1e-4, f"vlad_export distances: shape {dist.shape}, "
+          f"gap to the CPU's float64 {dgap}")
+    phase("geo", f"VLAD index, {k} words x {d} = {k * d}-D, {m} database "
+          f"images x {p} byte descriptors (GreatCourt's train split), "
+          f"built on the card in {build_ms:.2f} ms; table vs the CPU's "
+          f"float64 gap {gap:.3e}; assignments with the two nearest "
+          f"centers tied: {ties} of {m * p} (within 1 in squared distance: "
+          f"{near}), the lower center taking each on both sides; "
+          f"{len(queries)} queries, top-{sizes.topk} order equal to the "
+          f"CPU's for all, {statistics.median(times):.3f} ms a query "
+          f"(median, host clock, with the copy back), smallest score gap "
+          f"within a top-{sizes.topk + 1} {min(gaps):.3e}; save / load "
+          f"round trip equal; cli.vlad_export --format distances on the "
+          f"card ({sizes.export_rows} rows) in {export_s:.2f} s, gap "
+          f"{dgap:.3e}")
+    return {"build_ms": build_ms, "query_ms": statistics.median(times)}
+
+
+def geo_geometry(dev, root: str) -> None:
+    """The pose and camera functions on the card against the CPU in
+    float64, `preprocess_scene` on a 480x640 depth frame decoded by the
+    port's `image_io`."""
+    rng = np.random.default_rng(SEED + 42)
+
+    def traj7(n):
+        q = rng.normal(size=(n, 4))
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        return np.concatenate([rng.normal(size=(n, 3)), q], 1)
+
+    def tcw(n):
+        R = pose_ops.quat2mat(torch.from_numpy(traj7(n)[:, 3:])).numpy()
+        return np.concatenate([R, rng.normal(size=(n, 3, 1))], 2)
+
+    p6 = np.concatenate([rng.normal(size=(64, 8, 3)),
+                         rng.normal(scale=0.6, size=(64, 8, 3))], -1)
+    a7, b7 = traj7(512), traj7(512)
+    gaps = {}
+    for name in ("calc_vo_logq", "calc_vo_relative_logq"):
+        gaps[name] = card_vs_cpu64(dev, getattr(pose_ops, name), p6[:, :4],
+                                   p6[:, 4:])
+    gaps["calc_vo_relative"] = card_vs_cpu64(dev, pose_ops.calc_vo_relative,
+                                             a7, b7)
+    for name in ("calc_vos", "calc_vos_fc", "calc_vos_simple"):
+        gaps[name] = card_vs_cpu64(dev, getattr(pose_ops, name), p6)
+    K = np.stack([np.array([[585.0, 0, 320], [0, 585, 240], [0, 0, 1]])] * 4)
+    T, T2 = tcw(4), tcw(4)
+    X = rng.normal(size=(4, 1000, 3)) + [0, 0, 4]
+    x2d = rng.uniform(0, 640, (4, 1000, 2))
+    dep = rng.uniform(0.5, 5, (4, 1000, 1))
+    gaps["pi"] = card_vs_cpu64(dev, camera.pi, K, X)
+    gaps["pi_inv"] = card_vs_cpu64(dev, camera.pi_inv, K, x2d, dep)
+    for name in ("inv_pose", "camera_pose_inv", "camera_center_from_Tcw"):
+        gaps[name] = card_vs_cpu64(dev, getattr(camera, name),
+                                   T[:, :, :3], T[:, :, 3])
+    gaps["transform_points"] = card_vs_cpu64(
+        dev, camera.transform_points, T[:, :, :3], T[:, :, 3], X)
+    gaps["rel_distance"] = card_vs_cpu64(dev, camera.rel_distance, T, T2)
+    gaps["preprocess_query"] = card_vs_cpu64(
+        dev, lambda t, k, c: camera.preprocess_query(t, k, c, (256, 341),
+                                                     (480, 640)),
+        T, K, rng.normal(size=3))
+    gaps["x_2d_coords"] = card_vs_cpu64(
+        dev, lambda ref: camera.x_2d_coords(480, 640, ref.device).to(
+            ref.dtype), np.zeros(1))
+    deg = {"quaternion_angular_error": card_vs_cpu64(
+        dev, pose_ops.quaternion_angular_error, a7[:, 3:], b7[:, 3:]),
+        "log_quaternion_angular_error": card_vs_cpu64(
+            dev, pose_ops.log_quaternion_angular_error, p6[:, :, 3:],
+            p6[::-1, :, 3:].copy()),
+        "rel_rot_angle": card_vs_cpu64(dev, camera.rel_rot_angle, T, T2)}
+
+    # one 480x640 frame and its 16-bit depth (mm, 65535 invalid in a
+    # patch) through PNG files and the port's decoder
+    y, x = np.mgrid[0:480, 0:640]
+    depth = (800 + 3 * x + 2 * y + rng.integers(0, 50, x.shape)).astype(
+        np.uint16)
+    depth[100:200, 100:300] = 65535
+    colour = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    image_io.encode_png(osp.join(root, "depth.png"), depth)
+    image_io.encode_png(osp.join(root, "colour.png"), colour)
+    depth = image_io.decode_gray_png(osp.join(root, "depth.png"))
+    colour = image_io.decode_png(osp.join(root, "colour.png"))
+    metres = camera.decode_depth_mm(torch.from_numpy(depth.astype(
+        np.int32)).to(dev))
+    check(torch.equal(metres.cpu(), camera.decode_depth_mm(
+        torch.from_numpy(depth.astype(np.int32)))) and float(
+        metres[150, 200]) == 0.0, "decode_depth_mm: card differs from CPU")
+    gaps["preprocess_scene"] = card_vs_cpu64(
+        dev, camera.preprocess_scene, colour[None] / 255.0,
+        metres.cpu().numpy()[None], K[:1], T[:1])
+    bad = {n: g for n, g in gaps.items() if not g <= GEO_REL_TOL}
+    bad.update({n: g for n, g in deg.items() if not g <= GEO_DEG_TOL})
+    check(not bad, f"card vs CPU float64 gaps over tolerance: {bad}")
+    phase("geo", "pose and camera functions on the card (float32) against "
+          "the CPU in float64, largest gap over max(1, |value|): "
+          + ", ".join(f"{n} {g:.2e}" for n, g in gaps.items())
+          + "; angles in degrees: "
+          + ", ".join(f"{n} {g:.2e}" for n, g in deg.items())
+          + f"; decode_depth_mm of a 480x640 16-bit PNG equal to the CPU's,"
+          f" preprocess_scene on it (307200 points)")
+
+
+def write_geo_store(root: str, rng: np.random.Generator, n: int) -> None:
+    """`chess_fc8_sp5_test`: `n` 8-node query graphs at HxW along a smooth
+    seeded trajectory (pose6), frames from a pool of 96."""
+    t = np.cumsum(rng.normal(scale=0.05, size=(n, 3)), axis=0)
+    w = np.cumsum(rng.normal(scale=0.03, size=(n, 3)), axis=0)
+    traj = np.concatenate([t, w], 1).astype(np.float32)
+    pool = rng.integers(0, 256, size=(96, H, W, 3), dtype=np.uint8)
+    writer = PackedGraphWriter(osp.join(root, "chess_fc8_sp5_test"), n, 8,
+                               H, W, mean=MEAN, std=STD)
+    for i in range(n):
+        others = rng.choice(n - 1, 7, replace=False)
+        idx = np.r_[i, others + (others >= i)]
+        writer.add(pool[idx % 96].astype(np.float32) / 255.0, traj[idx],
+                   ~np.eye(8, dtype=bool), nbr_idx=idx[1:])
+    writer.finalize()
+
+
+def _errors(t, q, t_gt, q_gt) -> tuple:
+    """Median translation (m) and rotation (degrees) errors."""
+    te = np.linalg.norm(t - t_gt, axis=1)
+    qe = pose_ops.quaternion_angular_error(torch.from_numpy(q),
+                                           torch.from_numpy(q_gt)).numpy()
+    return float(np.median(te)), float(np.median(qe))
+
+
+def geo_pgo(dev, root: str, sizes: GeoSizes) -> tuple:
+    """One R3 eval through kernel #1 (`cli.test`, seeded weights) writes
+    the query poses; PGO chained over all of them and fully connected over
+    the first `fc_nodes`, VOs from the targets, then the alignment to the
+    targets, each on the card against the CPU in float64.  Returns (the
+    launches of `cli.test`, {timing name: ms})."""
+    write_geo_store(root, np.random.default_rng(SEED + 43),
+                    sizes.test_graphs)
+    save = osp.join(root, "out")
+    att_core.LAUNCHES = 0
+    t0 = time.perf_counter()
+    cli_test.main(["--test-scene", "chess", "--test-data-dir", root,
+                   "--save-dir", save, "--weights-filename",
+                   osp.join(root, "none.pth.tar"), "--allow-random-init",
+                   "--batch-size", str(sizes.eval_batch)])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = att_core.LAUNCHES
+    batches = -(-sizes.test_graphs // sizes.eval_batch)
+    check(launches == 2 * batches, f"geo cli.test launched the attention "
+          f"kernel {launches} times, want 2 x {batches}")
+    npz, = [f for f in os.listdir(osp.join(save, "7Scenes", "chess",
+                                           "eval")) if f.endswith(".npz")]
+    z = np.load(osp.join(save, "7Scenes", "chess", "eval", npz))
+    pred = np.concatenate([z["abs_t"], z["abs_q"]], 1).astype(np.float32)
+    targ = np.concatenate([z["targ_t"], z["targ_q"]], 1).astype(np.float32)
+    check(pred.shape == (sizes.test_graphs, 7)
+          and bool(np.isfinite(pred).all()), f"cli.test exported {pred.shape}")
+
+    ms, lines, gaps = {}, [], {}
+    before = _errors(pred[:, :3], pred[:, 3:], targ[:, :3], targ[:, 3:])
+    n = sizes.fc_nodes
+    src, dst = pgo.fc_edges(n)
+    fc_vos = pose_ops.calc_vo_relative(
+        torch.from_numpy(targ[src]).to(dev),
+        torch.from_numpy(targ[dst]).to(dev)).cpu().numpy()
+    runs = {"chain": (pred, pgo.vos_from_target_poses(targ, device=dev),
+                      False, targ),
+            "fc": (pred[:n], fc_vos, True, targ[:n])}
+    for name, (p, vos, fc, gt) in runs.items():
+        pgo.optimize_pose_graph(p, vos, fc=fc, n_iters=1, device=dev)
+        t0 = time.perf_counter()
+        got = pgo.optimize_pose_graph(p, vos, fc=fc, device=dev)
+        ms[f"pgo {name}"] = (time.perf_counter() - t0) * 1e3
+        want = pgo.optimize_pose_graph(p, vos, fc=fc, device="cpu",
+                                       dtype=torch.float64)
+        gaps[f"pgo {name}"] = float(np.abs(got - want).max())
+        after = _errors(got[:, :3], got[:, 3:], gt[:, :3], gt[:, 3:])
+        t_al, q_al, _ = align.align_camera_poses(
+            *(torch.from_numpy(a).to(dev) for a in (
+                got[:, :3], got[:, 3:], gt[:, :3], gt[:, 3:])))
+        r_t, r_q, _ = align.align_camera_poses(
+            *(torch.from_numpy(a).double() for a in (
+                got[:, :3], got[:, 3:], gt[:, :3], gt[:, 3:])))
+        gaps[f"align {name}"] = max(
+            float((t_al.cpu().double() - r_t).abs().max()),
+            float((q_al.cpu().double() - r_q).abs().max()))
+        aligned = _errors(t_al.cpu().numpy(), q_al.cpu().numpy(),
+                          gt[:, :3], gt[:, 3:])
+        start = _errors(p[:, :3], p[:, 3:], gt[:, :3], gt[:, 3:])
+        lines.append(
+            f"{name} over {len(p)} poses ({len(vos)} VOs, J "
+            f"{7 * (len(p) + len(vos))} x {6 * len(p)}): "
+            f"{ms[f'pgo {name}']:.1f} ms on the card; median errors "
+            f"{start[0]:.4f} m, {start[1]:.3f} deg -> after PGO "
+            f"{after[0]:.4f} m, {after[1]:.3f} deg -> aligned "
+            f"{aligned[0]:.4f} m, {aligned[1]:.3f} deg")
+    bad = {k: g for k, g in gaps.items() if not g <= PGO_TOL}
+    check(not bad, f"PGO / alignment card vs CPU float64 over {PGO_TOL}: "
+          f"{bad}")
+    phase("geo", f"cli.test (R3 bf16, seeded weights, batch "
+          f"{sizes.eval_batch}) over {sizes.test_graphs} query graphs in "
+          f"{eval_s:.2f} s, attention kernel launches {launches}; its "
+          f"exported poses: median errors {before[0]:.4f} m, "
+          f"{before[1]:.3f} deg (seeded weights: facts, not claims)")
+    phase("geo", "PGO (10 Gauss-Newton steps, VOs from the targets, "
+          "world-frame as the reference) then align_camera_poses to the "
+          "targets: " + "; ".join(lines) + "; card vs CPU float64 gaps: "
+          + ", ".join(f"{k} {g:.2e}" for k, g in gaps.items()))
+    return launches, ms
+
+
+def geo_trace(dev, root: str, sizes: GeoSizes) -> int:
+    """`cli.serve --trace-dir` on one synthetic scene: the trace parses and
+    names kernel #1 as many times as the call launched it.  Returns the
+    launches."""
+    raw, stats = osp.join(root, "raw"), osp.join(root, "stats")
+    synthetic_scenes.generate_dataset(
+        raw, ("chess",), stats, n_train_seqs=1, n_test_seqs=1,
+        frames_per_seq=sizes.serve_frames, height=480, width=640,
+        seed=SEED + 44)
+    trace_dir = osp.join(root, "trace")
+    att_core.LAUNCHES = 0
+    t0 = time.perf_counter()
+    err = cli_serve.main(["--scene", "chess", "--data-path", raw,
+                          "--stats-path", stats, "--batch-size",
+                          str(sizes.serve_batch), "--trace-dir", trace_dir])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = att_core.LAUNCHES
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    check(len(files) == 1, f"cli.serve --trace-dir wrote {files}")
+    with open(osp.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    named = sum(1 for e in events if e.get("cat") == "kernel"
+                and "att_core_kernel" in e.get("name", ""))
+    batches = -(-sizes.serve_frames // sizes.serve_batch)
+    check(launches == 2 * batches and named == launches
+          and np.isfinite(err.median_t),
+          f"cli.serve --trace-dir: {launches} launches (want 2 x "
+          f"{batches}), the trace names att_core_kernel {named} times")
+    phase("geo", f"cli.serve --trace-dir on one scene (R3 bf16 + NetVLAD, "
+          f"seeded, {sizes.serve_frames} queries, batch "
+          f"{sizes.serve_batch}) in {secs:.2f} s: attention kernel "
+          f"launches {launches}, the trace ({len(events)} events, "
+          f"{osp.getsize(osp.join(trace_dir, files[0])) / 1e6:.1f} MB) "
+          f"names att_core_kernel {named} times")
+    return launches
+
+
+def geo_tooling(dev, root: str, model: RelPoseGNN, sizes: GeoSizes) -> int:
+    """StepTimer over cached eval steps, seed_everything's CUDA generator,
+    FrameworkConfig's round trip with bfloat16.  Returns the launches."""
+    b = sizes.timer_batch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 45)
+    q = make_normalizer(MEAN, STD, dev)(torch.randint(
+        0, 256, (b, H, W, 3), dtype=torch.uint8, device=dev,
+        generator=gen))
+    nbr = torch.randn(b, 7, model.cfg.feat_dim, device=dev, generator=gen)
+    poses = torch.randn(b, 7, 6, device=dev, generator=gen)
+    adj = torch.ones(b, 8, 8, dtype=torch.bool, device=dev)
+    step = serving.make_cached_eval_step(model)
+    timer = profiling.StepTimer(window=3)
+    att_core.LAUNCHES = 0
+    timer.start()
+    rates = [timer.step(step(q, nbr, poses, adj))
+             for _ in range(sizes.timer_steps)]
+    launches = att_core.LAUNCHES
+    check([r is None for r in rates] == [True, True, False] * (
+        sizes.timer_steps // 3) and all(r > 0 for r in rates[2::3])
+        and launches == 2 * sizes.timer_steps,
+        f"StepTimer rates {rates}, {launches} launches")
+
+    g = seeding.seed_everything(SEED, device=dev)
+    check(g.device.type == "cuda" and torch.equal(
+        torch.rand(4, device=dev, generator=g),
+        torch.rand(4, device=dev,
+                   generator=torch.Generator(dev).manual_seed(SEED))),
+        f"seed_everything gave a generator on {g.device}")
+    path = osp.join(root, "run.json")
+    cfg = config.FrameworkConfig(model=RelPoseGNNConfig.preset(
+        "R3", dtype=torch.bfloat16))
+    cfg.save(path)
+    check(config.FrameworkConfig.load(path) == cfg
+          and cfg.model.dtype is torch.bfloat16,
+          "FrameworkConfig differs after a JSON round trip")
+    phase("geo", f"StepTimer(window 3) over {sizes.timer_steps} R3 cached "
+          f"eval steps (batch {b}, bf16): {rates[2]:.1f} and "
+          f"{rates[5]:.1f} steps/s at the window ends, attention kernel "
+          f"launches {launches}; seed_everything gave a generator on "
+          f"{g.device}; FrameworkConfig (R3, bfloat16) equal after a JSON "
+          "round trip")
+    return launches
+
+
+def run_geo(dev, root: str, model: RelPoseGNN,
+            sizes: GeoSizes = GeoSizes()) -> dict:
+    """Phase `geo`: geometry, classical retrieval and the tooling on the
+    card.  Returns the attention kernel's launches by path."""
+    t0 = time.perf_counter()
+    vlad_ms = geo_vlad(dev, root, sizes)
+    geo_geometry(dev, root)
+    launches = {}
+    launches["geo cli.test"], pgo_ms = geo_pgo(dev, root, sizes)
+    launches["geo cli.serve --trace-dir"] = geo_trace(dev, root, sizes)
+    launches["geo StepTimer cached eval"] = geo_tooling(dev, root, model,
+                                                        sizes)
+    phase("geo", f"phase time {time.perf_counter() - t0:.1f} s; VLAD build "
+          f"{vlad_ms['build_ms']:.2f} ms, query {vlad_ms['query_ms']:.3f} "
+          f"ms; PGO chain {pgo_ms['pgo chain']:.1f} ms, fc "
+          f"{pgo_ms['pgo fc']:.1f} ms; attention kernel launches "
+          f"{launches}")
+    return launches
+
+
 def time_feed(dev, card: str, root: str, sizes: FeedSizes,
               model_kw: dict) -> dict:
     """The R3 train step at batch 8 fed by DeviceCachedFeed and by the
@@ -4010,6 +4490,8 @@ def main() -> int:
         att_times.update(time_feed(dev, card, feed_root, feed_sizes, {}))
     with tempfile.TemporaryDirectory() as raw_root:
         att_launches.update(run_raw(dev, raw_root, RawSizes()))
+    with tempfile.TemporaryDirectory() as geo_root:
+        att_launches.update(run_geo(dev, geo_root, model))
     with tempfile.TemporaryDirectory() as multi_root:
         att_launches.update(run_multi_nccl(dev, model, netvlad, multi_root))
         att_launches.update(run_multi_gloo(dev, multi_root))

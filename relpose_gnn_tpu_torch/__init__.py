@@ -20,7 +20,8 @@ which raises where there is no CUDA.  `device="cpu"` is an explicit
 request, the one the CPU parity tests make.
 
 Subpackages:
-  ops         dense graph ops, quaternion algebra; the CUDA kernels
+  ops         dense graph ops, quaternion algebra, camera geometry,
+              pose-graph optimisation, trajectory alignment; the CUDA kernels
               (attention core, with its autograd Function; fused pair MLP;
               attention variants), their wrappers and their build
   models      ResNet trunk, BN folding, attention, GNN layers, RelPoseGNN
@@ -28,13 +29,17 @@ Subpackages:
               PoseNet, MapNet), the PoseNetX family, the pair encoder, the
               registry of every model (zoo.py), VGG16, NetVLAD, weight and
               train-state conversion
-  data        input normalisation, packed graph stores, the training feed
-  retrieval   neighbour subsampling, descriptor index
+  data        input normalisation, packed graph stores, the training feed,
+              sequence metadata
+  retrieval   neighbour subsampling, descriptor index, classical ORB-VLAD
   training    criteria, trainer, checkpoints, experiment loop, pose fusion
   evaluation  the relocalization services, cached serving, pose errors
-  utils       logging and metrics
+  utils       logging, metrics, seeding, profiling, trajectory plots
   benchmarks  the kernel, service, eval and train benches
+  config.py   the whole configuration tree with a JSON round trip
 """
+
+import contextlib
 
 import torch
 
@@ -56,3 +61,18 @@ def default_device() -> torch.device:
 def resolve_device(device: torch.device | str | None) -> torch.device:
     """`device` as a torch.device; None means `default_device()`."""
     return default_device() if device is None else torch.device(device)
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Float32 GEMMs at full precision inside the block, whatever the
+    caller set: with `torch.backends.cuda.matmul.allow_tf32` on, a CUDA
+    float32 product rounds its inputs to TF32 (10-bit mantissa).  Used
+    where a result feeds an argmin or a solve, as the JAX package pins
+    `Precision.HIGHEST` there."""
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag

@@ -16,12 +16,23 @@
         --weights relpose_gnn__multi_39.pth.tar --graph-data-dir graphs/
     python -m relpose_gnn_tpu_torch.cli.compute_pose_stats \\
         --data-path Cambridge/ --output pose_stats.txt
+    python -m relpose_gnn_tpu_torch.cli.build_vlad_index \\
+        --image-glob 'Cambridge/ShopFacade/seq*/*.png' --output vlad.pkl
+    python -m relpose_gnn_tpu_torch.cli.build_graphs ShopFacade train \\
+        --dataset Cambridge --data-path Cambridge/ --graph-data-path \\
+        graphs/ --vlad-index vlad.pkl
+    python -m relpose_gnn_tpu_torch.cli.vlad_export --index vlad.pkl \\
+        --output dist --format distances
+    python -m relpose_gnn_tpu_torch.cli.scenes2seq 7Scenes/chess
 
 Counterparts of the JAX package's `cli/` scripts of the same names: the
 same flags, defaults, choices and experiment names, plus `--device`
-(default: the CUDA card; `cpu` must be asked for).  A flag whose work the
-port does not have yet raises NotImplementedError naming the ROADMAP.md
-slice that brings it; nothing runs on the CPU in its place.
+(default: the CUDA card; `cpu` must be asked for; `scenes2seq` is host
+only).  ORB, the KMeans dictionary, PnP and the trajectory plots are host
+calls into OpenCV, scikit-learn and matplotlib, which the card's machine
+does not have.  An Orbax checkpoint directory of the JAX package is
+refused with NotImplementedError naming the way across; nothing runs on
+the CPU in its place.
 
 Over several GPUs, one process per device, each started with the same
 flags and its own `--process-id`:
@@ -101,13 +112,9 @@ def end_processes(started: bool) -> None:
 
 
 def refuse_unported(args) -> None:
-    """Raise NotImplementedError for a flag the port cannot honour yet
-    (the flags of `train`, `test` and `serve`; one absent from a parser
-    counts as unset)."""
-    if getattr(args, "trace_dir", None):
-        raise NotImplementedError(
-            "--trace-dir: the profiler trace of the serving loop "
-            "(utils/profiling.py) is ROADMAP.md queue 1, slice 9 (tooling)")
+    """Raise NotImplementedError for what the port does not read: the
+    JAX package's Orbax checkpoint directories, given to `train`, `test`
+    or `serve` (a flag absent from a parser counts as unset)."""
     w = getattr(args, "weights_filename", None) or getattr(args, "weights",
                                                            None)
     if w and osp.isdir(w) and ckpt.latest_epoch(w) is None and any(

@@ -15,9 +15,11 @@ PNG library; query batches go to the card as uint8.
 The same flags as the JAX script, plus `--device`.  `--weights` takes a
 `.pth.tar` (the reference layout, loaded with strict=True) or a
 checkpoint directory of `cli.train`; `--netvlad-checkpoint` the released
-`netvlad_vgg16.tar`.  `--trace-dir` (slice 9) raises NotImplementedError
-naming its ROADMAP.md slice.  There is no compiled query program, so no
-compile count is printed.
+`netvlad_vgg16.tar`.  `--trace-dir DIR` records a `torch.profiler` trace
+(CPU and CUDA activity) of the serving loop into DIR
+(`utils/profiling.py::trace`), around the loops the JAX script traces:
+the single-scene query stream and the multi-scene loop.  There is no
+compiled query program, so no compile count is printed.
 
 `--mesh-data N` serves ONE scene over N processes, one per device (the
 multi-process flags of cli/__init__.py): every process builds the same
@@ -63,6 +65,7 @@ from relpose_gnn_tpu_torch.training.experiment import (ExperimentConfig,
                                                        load_database_images)
 from relpose_gnn_tpu_torch.training.trainer import (TrainerConfig,
                                                     create_train_state)
+from relpose_gnn_tpu_torch.utils.profiling import trace
 
 
 def parse_args(argv):
@@ -116,8 +119,8 @@ def parse_args(argv):
     p.add_argument("--netvlad-clusters", type=int, default=64,
                    help="NetVLAD clusters (reference: 64)")
     p.add_argument("--trace-dir", default=None,
-                   help="a profiler trace of the serving loop (not ported "
-                        "yet)")
+                   help="write a torch.profiler trace of the serving loop "
+                        "(TensorBoard / Perfetto)")
     p.add_argument("--capacity", type=int, default=None,
                    help="pre-allocate the database to this many frames "
                         "(RelocalizationService.add_frames grows into it)")
@@ -313,9 +316,10 @@ def _run(args):
     query_batches, src_indices = _make_query_batches(q, args, h, w)
     t0 = time.perf_counter()
     if mesh is None:
-        poses_out = [out["pose"] for out in svc.query_stream(
-            query_batches(), model_norm, depth=args.pipeline_depth,
-            rng=args.seed)]
+        with trace(args.trace_dir):
+            poses_out = [out["pose"] for out in svc.query_stream(
+                query_batches(), model_norm, depth=args.pipeline_depth,
+                rng=args.seed)]
     else:
         print(f"mesh serving: data={args.mesh_data} across "
               f"{process_count()} process(es)")
@@ -404,22 +408,25 @@ def _serve_multiscene(args, model, netvlad, h, w, rhw, sp, device):
         print(f"databases saved to {args.save_db}")
 
     results = {}
-    for s in scenes:
-        q = _load_split(args, s, train=False)
-        print(f"[{s}] serving {len(q)} queries (batch "
-              f"{args.batch_size}) ...")
-        query_batches, src_indices = _make_query_batches(q, args, h, w)
-        t0 = time.perf_counter()
-        poses_out = [out["pose"] for out in ms.query_stream(
-            s, query_batches(), depth=args.pipeline_depth, rng=args.seed)]
-        t_serve = time.perf_counter() - t0
-        poses_out = np.concatenate(poses_out)[:len(src_indices)]
-        print(f"[{s}] served {len(poses_out)} queries in {t_serve:.2f}s "
-              f"({len(poses_out) / max(t_serve, 1e-9):.0f} q/s)")
-        out_path = (f"{args.out.rsplit('.npz', 1)[0]}_{s}.npz"
-                    if args.out else None)
-        results[s] = _report_scene(args, q, poses_out, src_indices,
-                                   out_path)
+    with trace(args.trace_dir):
+        for s in scenes:
+            q = _load_split(args, s, train=False)
+            print(f"[{s}] serving {len(q)} queries (batch "
+                  f"{args.batch_size}) ...")
+            query_batches, src_indices = _make_query_batches(q, args, h, w)
+            t0 = time.perf_counter()
+            poses_out = [out["pose"] for out in ms.query_stream(
+                s, query_batches(), depth=args.pipeline_depth,
+                rng=args.seed)]
+            t_serve = time.perf_counter() - t0
+            poses_out = np.concatenate(poses_out)[:len(src_indices)]
+            print(f"[{s}] served {len(poses_out)} queries in "
+                  f"{t_serve:.2f}s "
+                  f"({len(poses_out) / max(t_serve, 1e-9):.0f} q/s)")
+            out_path = (f"{args.out.rsplit('.npz', 1)[0]}_{s}.npz"
+                        if args.out else None)
+            results[s] = _report_scene(args, q, poses_out, src_indices,
+                                       out_path)
     print(f"served {len(scenes)} scenes through one MultiSceneService "
           f"(capacity {capacity})")
     return results

@@ -1,13 +1,10 @@
 """Quaternion algebra on pose tensors (PyTorch).
 
-Port of the quaternion part of `relpose_gnn_tpu/ops/pose.py` (`vdot` to
-`calc_vo`, reference pose_utils.py:17-172), which
-`training/criterion.py::mapnet_online_criterion` needs, and of its
-rotation-matrix conversions and host pose preprocessing (`mat2quat`,
-`quat2mat`, `process_poses*`), which the loaders need.  The rest of the
-JAX module (the `calc_vo*` family, angular errors, alignment) is in
-ROADMAP.md, 'Modules to port', slice 8b (geometry and classical
-retrieval).
+Port of `relpose_gnn_tpu/ops/pose.py` (reference pose_utils.py:17-431):
+the quaternion algebra, the visual-odometry family (`calc_vo*`,
+`calc_vos*`), the angular errors, the rotation-matrix conversions
+(`mat2quat`, `quat2mat`) and the loaders' host pose preprocessing
+(`process_poses*`).
 
 Conventions, as in the JAX module: quaternions are [w, x, y, z] (scalar
 first); a pose7 is [t(3), q(4)].  Every function is batched over leading
@@ -101,22 +98,105 @@ def calc_vo(p0: torch.Tensor, p1: torch.Tensor) -> torch.Tensor:
     return compose_pose_quaternion(invert_pose_quaternion(p0), p1)
 
 
+def _with_q(p: torch.Tensor) -> torch.Tensor:
+    """pose6 [t, logq] -> pose7 [t, q]."""
+    return torch.cat([p[..., :3], qexp(p[..., 3:])], dim=-1)
+
+
+def _with_logq(p: torch.Tensor) -> torch.Tensor:
+    """pose7 [t, q] -> pose6 [t, logq]."""
+    return torch.cat([p[..., :3], qlog(p[..., 3:])], dim=-1)
+
+
+def calc_vo_logq(p0: torch.Tensor, p1: torch.Tensor) -> torch.Tensor:
+    """`calc_vo` on pose6 (logq) inputs and output."""
+    return _with_logq(calc_vo(_with_q(p0), _with_q(p1)))
+
+
+def calc_vo_relative(p0: torch.Tensor, p1: torch.Tensor) -> torch.Tensor:
+    """World-frame relative pose (pose7): [t1 - t0, q0^-1 q1]."""
+    vos_q = qmult(qinv(p0[..., 3:]), p1[..., 3:])
+    return torch.cat([p1[..., :3] - p0[..., :3], vos_q], dim=-1)
+
+
+def calc_vo_relative_logq(p0: torch.Tensor,
+                          p1: torch.Tensor) -> torch.Tensor:
+    """`calc_vo_relative` on pose6 inputs and output."""
+    return _with_logq(calc_vo_relative(_with_q(p0), _with_q(p1)))
+
+
+def calc_vos(poses: torch.Tensor) -> torch.Tensor:
+    """Consecutive geometric VO on pose6 sequences: [..., T, 6] ->
+    [..., T-1, 6], frame i+1 in frame i's frame, log-mapped."""
+    return calc_vo_logq(poses[..., :-1, :], poses[..., 1:, :])
+
+
+def calc_vos_fc(poses: torch.Tensor) -> torch.Tensor:
+    """Fully connected geometric VO on pose6 sequences: [..., T, 6] ->
+    [..., T(T-1)/2, 6], for every i < j (row-major) the pose of j in i's
+    frame, log-mapped."""
+    t = poses.shape[-2]
+    src, dst = torch.triu_indices(t, t, offset=1, device=poses.device)
+    return calc_vo_logq(poses[..., src, :], poses[..., dst, :])
+
+
+def calc_vos_simple(poses: torch.Tensor) -> torch.Tensor:
+    """Consecutive-frame VO as plain differences: [..., T, D] ->
+    [..., T-1, D], p[i+1] - p[i]."""
+    return poses[..., 1:, :] - poses[..., :-1, :]
+
+
+def quaternion_angular_error(q1: torch.Tensor,
+                             q2: torch.Tensor) -> torch.Tensor:
+    """Angle in degrees between unit quaternions, batched:
+    2 arccos(|<q1, q2>|) 180 / pi."""
+    d = torch.clamp(torch.abs(torch.sum(q1 * q2, dim=-1)), -1.0, 1.0)
+    return 2.0 * torch.arccos(d) * (180.0 / np.pi)
+
+
+def log_quaternion_angular_error(w1: torch.Tensor,
+                                 w2: torch.Tensor) -> torch.Tensor:
+    """Angular error in degrees between two log-quaternions."""
+    return quaternion_angular_error(qexp(w1), qexp(w2))
+
+
 # ---------------------------------------------------------------------------
 # Rotation matrix <-> quaternion, and the loaders' pose preprocessing
 # ---------------------------------------------------------------------------
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Square root rounded to nearest: torch's vectorised float32 `sqrt`
+    on the CPU is off by an ulp for about 1% of inputs, XLA's is not; a
+    float64 square root rounded to float32 is exact."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def _normalize_fma(x: torch.Tensor) -> torch.Tensor:
+    """`normalize` along the last dim with the sum of squares taken as
+    XLA's CPU reduction takes it: x0 x0, then one fused multiply-add a
+    term, each rounded once (emulated in float64)."""
+    s = x[..., 0] * x[..., 0]
+    for i in range(1, x.shape[-1]):
+        s = (x[..., i].double() * x[..., i].double() + s.double()).to(
+            x.dtype)
+    return x / torch.clamp_min(_sqrt_rn(s)[..., None], _EPS)
+
 
 def mat2quat(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix [..., 3, 3] -> unit quaternion [..., 4] (w,x,y,z).
 
     Shepperd's branchless method: all four candidate quadruples, the one
-    with the largest pivot (first on ties) selected."""
+    with the largest pivot (first on ties) selected.  In float32 the
+    JAX function's result bit for bit (its square roots rounded to
+    nearest, its norm's sum of squares by fused multiply-adds), so that
+    the quaternions the sequence exports print agree to every digit."""
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
     m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
     m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
     tr = m00 + m11 + m22
 
     def safe_sqrt(x):
-        return torch.sqrt(torch.clamp_min(x, _EPS * _EPS))
+        return _sqrt_rn(torch.clamp_min(x, _EPS * _EPS))
 
     s_w = safe_sqrt(1.0 + tr)
     q_w = torch.stack([0.5 * s_w, 0.5 * (m21 - m12) / s_w,
@@ -135,7 +215,7 @@ def mat2quat(R: torch.Tensor) -> torch.Tensor:
     q = torch.where(best == 0, q_w,
                     torch.where(best == 1, q_x,
                                 torch.where(best == 2, q_y, q_z)))
-    return normalize(q)
+    return _normalize_fma(q)
 
 
 def quat2mat(q: torch.Tensor) -> torch.Tensor:

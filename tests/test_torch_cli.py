@@ -4,9 +4,11 @@ tiny packed stores (4-node graphs at 32x40, resnet18, dims 32).
 
   * `parse_args` of the port's train, test, serve, build_graphs and
     parity gives the JAX CLI's namespace for the same argv, apart from the
-    port's own `--device`, the multi-process flags included.  The JAX CLIs
-    are loaded by file path; they import only argparse, sys and numpy at
-    module level.
+    port's own `--device`, the multi-process flags included; so does that
+    of build_vlad_index, vlad_export and scenes2seq, whose JAX scripts
+    parse inside `main` (their namespace is caught at `parse_args`).  The
+    JAX CLIs are loaded by file path; they import only argparse, sys and
+    numpy at module level.
   * `main` trains (one epoch, a checkpoint after it) and evaluates that
     checkpoint; the test entry's medians equal `run_eval` on the same
     weights exactly (the same float32 CPU computation), and the saved
@@ -20,22 +22,27 @@ tiny packed stores (4-node graphs at 32x40, resnet18, dims 32).
     ValueError before anything runs.
 """
 
+import argparse
 import contextlib
 import importlib.util
 import io
 import os
 import os.path as osp
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
 from relpose_gnn_tpu_torch.cli import build_graphs as cli_build_graphs
+from relpose_gnn_tpu_torch.cli import build_vlad_index as cli_vlad_index
 from relpose_gnn_tpu_torch.cli import parity as cli_parity
 from relpose_gnn_tpu_torch.cli import refuse_unported
+from relpose_gnn_tpu_torch.cli import scenes2seq as cli_scenes2seq
 from relpose_gnn_tpu_torch.cli import serve as cli_serve
 from relpose_gnn_tpu_torch.cli import test as cli_test
 from relpose_gnn_tpu_torch.cli import train as cli_train
+from relpose_gnn_tpu_torch.cli import vlad_export as cli_vlad_export
 from relpose_gnn_tpu_torch.data.packed import PackedGraphWriter
 from relpose_gnn_tpu_torch.models import posenet as posenet_mod
 from relpose_gnn_tpu_torch.models import vit as vit_mod
@@ -121,7 +128,21 @@ BUILD_GRAPHS_ARGVS = [
      "p.txt", "--seq-len", "4", "--sp", "3", "--sampling-method", "RAND",
      "--cross-connect", "--netvlad-checkpoint", "n.tar", "--retrieval",
      "netvlad", "--seed", "1"],
+    ["KingsCollege", "train", "--dataset", "Cambridge", "--data-path", "raw",
+     "--graph-data-path", "g", "--retrieval", "vlad", "--vlad-index",
+     "v.pkl"],
 ]
+VLAD_INDEX_ARGVS = [
+    ["--image-glob", "raw/*/*.png", "--output", "v.pkl"],
+    ["--image-glob", "raw/*/*.png", "--output", "v.pkl", "--clusters", "32",
+     "--orb-features", "1000", "--seed", "4"],
+]
+VLAD_EXPORT_ARGVS = [
+    ["--index", "v.pkl", "--output", "d", "--format", "distances"],
+    ["--index", "v.pkl", "--output", "p.prj", "--format", "prj",
+     "--scale"],
+]
+SCENES2SEQ_ARGVS = [["raw/chess"], ["raw/chess", "--dst-dir", "out"]]
 PARITY_ARGVS = [
     ["--weights", "w.pth.tar", "--graph-data-dir", "g"],
     ["--weights", "w.pth.tar", "--graph-data-dir", "g", "--dataset",
@@ -157,6 +178,36 @@ def test_other_entries_parse_args_equal_jax(name, module, argv):
     got = vars(module.parse_args(argv))
     assert got.pop("device") is None
     assert got == vars(_jax_cli(name).parse_args(argv))
+
+
+class _Parsed(Exception):
+    """Carries the namespace out of a JAX script's `main`."""
+
+
+def _jax_main_namespace(name: str, argv: list) -> dict:
+    """The namespace a root JAX script that parses inside `main` builds
+    for `argv`; `main` stops there."""
+    real = argparse.ArgumentParser.parse_args
+
+    def caught(self, args=None, namespace=None):
+        raise _Parsed(real(self, args, namespace))
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", caught):
+        with pytest.raises(_Parsed) as parsed:
+            _jax_cli(name).main(argv)
+    return vars(parsed.value.args[0])
+
+
+@pytest.mark.parametrize("name,module,argv", [
+    *(("build_vlad_index", cli_vlad_index, a) for a in VLAD_INDEX_ARGVS),
+    *(("vlad_export", cli_vlad_export, a) for a in VLAD_EXPORT_ARGVS),
+    *(("scenes2seq", cli_scenes2seq, a) for a in SCENES2SEQ_ARGVS),
+])
+def test_tool_entries_parse_args_equal_jax(name, module, argv):
+    got = vars(module.parse_args(argv))
+    if name != "scenes2seq":          # host only: no --device
+        assert got.pop("device") is None
+    assert got == _jax_main_namespace(name, argv)
 
 
 @pytest.fixture(scope="module")

@@ -173,12 +173,17 @@ def test_counts_widths_and_cross_connect(built):
     assert images.shape == (4, 4, 256, 341, 3) and images.dtype == np.uint8
 
 
-def test_vlad_retrieval_is_refused(tmp_path):
-    for extra in (["--retrieval", "vlad"], ["--dataset", "Cambridge"]):
-        with pytest.raises(NotImplementedError, match="slice 8"):
-            port_cli.main(["chess", "train", "--data-path", str(tmp_path),
-                           "--graph-data-path", str(tmp_path / "g"),
-                           "--device", "cpu", *extra])
+def test_vlad_retrieval_is_refused(built, tmp_path):
+    """Classical ORB-VLAD retrieval runs (tests/test_torch_vlad.py holds
+    its stores against the JAX CLI's); without its index pickle it is
+    refused, as the JAX CLI's is, before any store is written."""
+    _, _, raw, _ = built
+    missing = str(tmp_path / "none.pkl")
+    with pytest.raises(FileNotFoundError, match="none.pkl"):
+        port_cli.main(["chess", "train", "--data-path", raw,
+                       "--graph-data-path", str(tmp_path / "g"),
+                       "--retrieval", "vlad", "--vlad-index", missing,
+                       "--device", "cpu"])
     assert not (tmp_path / "g").exists()
 
 

@@ -198,8 +198,7 @@ def test_medians_match_jax(served, which):
 
 
 # the multi-process flags run; what they cannot run is refused with a
-# ValueError (or SystemExit) before anything runs, and what the port does
-# not have with a NotImplementedError
+# ValueError (or SystemExit) before anything runs
 @pytest.mark.parametrize("flag,error,match", [
     pytest.param(["--mesh-data", "2"], ValueError, "needs 2 ranks",
                  id="mesh-over-world"),
@@ -210,8 +209,6 @@ def test_medians_match_jax(served, which):
                  id="no-coordinator"),
     pytest.param(["--local-device-count", "2"], ValueError,
                  "launch 2 processes", id="local-device-count"),
-    pytest.param(["--trace-dir", "trace"], NotImplementedError, "slice 9",
-                 id="trace-dir"),
     pytest.param(["--mesh-data", "2", "--batch-size", "3"], ValueError,
                  "must divide", id="batch-over-mesh"),
     pytest.param(["--mesh-data", "1", "--scene", "chess", "fire"], SystemExit,

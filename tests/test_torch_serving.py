@@ -219,7 +219,9 @@ def test_port_and_chip_smoke_never_import_jax():
     module of jax, flax, optax, orbax, the JAX package or the repo's
     top-level `benchmarks` package is loaded (the `_torch` package's own name
     starts like the JAX package's and is excepted), and no module of PIL,
-    also after a colour frame is encoded, decoded and resized through the
+    OpenCV, scikit-learn or matplotlib (the port imports the last three
+    only inside the host calls that need them), also after a colour frame
+    is encoded, decoded and resized through the
     loaders' path (`load_and_preprocess`, `crop_by_intrinsic`,
     `netvlad_preprocess_7scenes`): the card's machine has no PIL, and
     only the 16-bit depth frames need it."""
@@ -249,7 +251,8 @@ def test_port_and_chip_smoke_never_import_jax():
         "def foreign(m):\n"
         "    top = m.split('.')[0]\n"
         "    return top in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
-        "                   'relpose_gnn_tpu', 'benchmarks', 'bench', 'PIL')\n"
+        "                   'relpose_gnn_tpu', 'benchmarks', 'bench', 'PIL',\n"
+        "                   'cv2', 'sklearn', 'matplotlib')\n"
         "bad = sorted(m for m in sys.modules if foreign(m))\n"
         "assert not bad, bad\n"
         "for tail in ('evaluation.service', 'evaluation.multiscene',\n"
@@ -276,7 +279,11 @@ def test_port_and_chip_smoke_never_import_jax():
         "             'parallel.multihost', 'parallel.sharding',\n"
         "             'parallel.sharded_db', 'models.vit', 'models.atloc',\n"
         "             'models.legacy', 'models.pair_encoder',\n"
-        "             'models.zoo'):\n"
+        "             'models.zoo', 'ops.align', 'ops.pgo',\n"
+        "             'retrieval.vlad', 'cli.build_vlad_index',\n"
+        "             'cli.vlad_export', 'config', 'utils.seeding',\n"
+        "             'utils.profiling', 'utils.visualize',\n"
+        "             'data.sequences', 'cli.scenes2seq'):\n"
         "    assert 'relpose_gnn_tpu_torch.' + tail in sys.modules, tail\n"
         "print('clean')\n")])
     assert proc.returncode == 0, proc.stderr
