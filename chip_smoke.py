@@ -200,7 +200,11 @@ is no CPU fallback: without CUDA it exits 1 at once.
             chained over all 128 and `optimize_pose_graph` fully connected
             over the first 64 (VOs from the targets), then
             `align_camera_poses` to the targets, median errors before and
-            after printed (facts, not claims); `cli.serve --trace-dir` on
+            after printed (facts, not claims); `optimize_poses` chained at
+            chess's test split length (2000 poses of a seeded trajectory)
+            against float64 on the card, its time and peak memory;
+            `cli.scenes2seq` on that split on the card, byte for byte
+            its `--device cpu` files; `cli.serve --trace-dir` on
             one synthetic scene (16 queries, batch 8): the Chrome trace
             parses and names `att_core_kernel` as many times as the call
             launched it; `StepTimer` over 6 cached eval steps;
@@ -301,6 +305,7 @@ from relpose_gnn_tpu_torch.benchmarks import (_synthetic, _util,
 from relpose_gnn_tpu_torch.benchmarks._util import in_turns, median_ms
 from relpose_gnn_tpu_torch.cli import build_graphs as cli_build_graphs
 from relpose_gnn_tpu_torch.cli import parity as cli_parity
+from relpose_gnn_tpu_torch.cli import scenes2seq as cli_scenes2seq
 from relpose_gnn_tpu_torch.cli import serve as cli_serve
 from relpose_gnn_tpu_torch.cli import test as cli_test
 from relpose_gnn_tpu_torch.cli import train as cli_train
@@ -3583,6 +3588,7 @@ class GeoSizes:
     test_graphs: int = 128
     eval_batch: int = 64
     fc_nodes: int = 64
+    long_chain: int = 2000      # chess's test split (seq-03, seq-05)
     serve_frames: int = 16
     serve_batch: int = 8
     timer_steps: int = 6
@@ -3680,6 +3686,20 @@ def geo_vlad(dev, root: str, sizes: GeoSizes) -> dict:
     check(same == len(queries), f"top-{sizes.topk} order equal to the "
           f"CPU's for {same} of {len(queries)} queries")
 
+    # under a caller's TF32 the ranking products refuse to run
+    torch.backends.cuda.matmul.allow_tf32 = True
+    refused = []
+    for name, fn in (("vlad_aggregate", lambda: vlad.vlad_aggregate(
+            index.table.new_tensor(db[0]), index.table.new_tensor(centers))),
+                     ("similarities", lambda: index.similarities(
+                         index.table[:2]))):
+        try:
+            fn()
+        except RuntimeError:
+            refused.append(name)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(len(refused) == 2, f"under TF32 only {refused} refused to run")
+
     path = osp.join(root, "vlad.pkl")
     index.save(path)
     loaded = vlad.VLADIndex.load(path, device=dev)
@@ -3712,7 +3732,8 @@ def geo_vlad(dev, root: str, sizes: GeoSizes) -> dict:
           f"{len(queries)} queries, top-{sizes.topk} order equal to the "
           f"CPU's for all, {statistics.median(times):.3f} ms a query "
           f"(median, host clock, with the copy back), smallest score gap "
-          f"within a top-{sizes.topk + 1} {min(gaps):.3e}; save / load "
+          f"within a top-{sizes.topk + 1} {min(gaps):.3e}; under TF32 "
+          f"{' and '.join(refused)} refused to run; save / load "
           f"round trip equal; cli.vlad_export --format distances on the "
           f"card ({sizes.export_rows} rows) in {export_s:.2f} s, gap "
           f"{dgap:.3e}")
@@ -3910,6 +3931,94 @@ def geo_pgo(dev, root: str, sizes: GeoSizes) -> tuple:
     return launches, ms
 
 
+def chess_trajectory(n: int, rng) -> tuple:
+    """A seeded smooth trajectory of `n` pose7s in a room of chess's size
+    (1 cm and about 0.6 degree steps) and predictions off it by 0.1 m and
+    about 5 degrees: (pred, targ), float32 [n, 7]."""
+    t = np.cumsum(rng.normal(scale=0.01, size=(n, 3)), 0)
+    q = pose_ops.qexp(torch.from_numpy(np.cumsum(
+        rng.normal(scale=0.003, size=(n, 3)), 0)))
+    qp = pose_ops.qmult(q, pose_ops.qexp(torch.from_numpy(
+        rng.normal(scale=0.025, size=(n, 3)))))
+    targ = np.concatenate([t, q.numpy()], 1).astype(np.float32)
+    pred = np.concatenate([t + rng.normal(scale=0.1, size=(n, 3)),
+                           qp.numpy()], 1).astype(np.float32)
+    return pred, targ
+
+
+def geo_pgo_long(dev, sizes: GeoSizes) -> tuple:
+    """`optimize_poses` chained at a real test split's length (chess's
+    2000 test frames), VOs from the targets, on a seeded trajectory
+    (`chess_trajectory`): its time and peak device memory, against the
+    same function in float64 on the card (in float64 on the CPU it takes
+    minutes at this size).  Returns ({timing name: ms}, the targets)."""
+    n = sizes.long_chain
+    pred, targ = chess_trajectory(n, np.random.default_rng(SEED + 46))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    got = pgo.optimize_poses(pred, target_poses=targ, device=dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+    want = pgo.optimize_pose_graph(pred, pgo.vos_from_target_poses(
+        targ, device=dev), device=dev, dtype=torch.float64)
+    gap = float(np.abs(got - want).max())
+    check(got.shape == (n, 7) and bool(np.isfinite(got).all())
+          and gap <= PGO_TOL, f"PGO chained over {n} poses: {got.shape}, "
+          f"card float32 vs float64 gap {gap}")
+    start = _errors(pred[:, :3], pred[:, 3:], targ[:, :3], targ[:, 3:])
+    after = _errors(got[:, :3], got[:, 3:], targ[:, :3], targ[:, 3:])
+    phase("geo", f"optimize_poses chained over {n} poses (chess's test "
+          f"split length; J {7 * (2 * n - 1)} x {6 * n} float32, "
+          f"{7 * (2 * n - 1) * 6 * n * 4 / 2 ** 30:.2f} GiB): {ms:.1f} ms "
+          f"on the card, peak device memory {peak:.2f} GiB above the "
+          f"{base / 2 ** 30:.2f} GiB held before; median errors "
+          f"{start[0]:.4f} m, {start[1]:.3f} deg -> {after[0]:.4f} m, "
+          f"{after[1]:.3f} deg; card float32 vs float64 gap {gap:.2e}")
+    return {"pgo chain long": ms}, targ
+
+
+def geo_sequences(dev, root: str, targ: np.ndarray) -> None:
+    """`cli.scenes2seq` on a raw 7-Scenes scene of chess's test split
+    (seq-03 and seq-05, the frames' camera-to-world poses from `targ`;
+    the PNGs are empty, as scenes2seq reads none) on the card and with
+    `--device cpu`: every file written byte for byte the same."""
+    scene = osp.join(root, "seqs", "chess")
+    half = len(targ) // 2
+    R = pose_ops.quat2mat(torch.from_numpy(targ[:, 3:])).numpy()
+    for s, sid in enumerate((3, 5)):
+        d = osp.join(scene, f"seq-{sid:02d}")
+        os.makedirs(d)
+        for i in range(half):
+            Twc = np.eye(4)
+            Twc[:3, :3], Twc[:3, 3] = R[s * half + i], targ[s * half + i, :3]
+            open(osp.join(d, f"frame-{i:06d}.color.png"), "wb").close()
+            np.savetxt(osp.join(d, f"frame-{i:06d}.pose.txt"), Twc)
+    with open(osp.join(scene, "TestSplit.txt"), "w") as f:
+        f.write("sequence3\nsequence5\n")
+    t0 = time.perf_counter()
+    cli_scenes2seq.main([scene, "--dst-dir", osp.join(root, "seq_card")])
+    card_s = time.perf_counter() - t0
+    cli_scenes2seq.main([scene, "--dst-dir", osp.join(root, "seq_cpu"),
+                         "--device", "cpu"])
+    files = []
+    for dirpath, _, names in os.walk(osp.join(root, "seq_card")):
+        for name in names:
+            a = osp.join(dirpath, name)
+            b = osp.join(root, "seq_cpu", osp.relpath(a, osp.join(
+                root, "seq_card")))
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                check(fa.read() == fb.read(), f"cli.scenes2seq {name}: "
+                      "the card's file differs from the CPU's")
+            files.append(name)
+    check(len(files) == 2 * 5 + 2, f"cli.scenes2seq wrote {files}")
+    phase("geo", f"cli.scenes2seq on chess's test split ({2 * half} "
+          f"frames) on the card in {card_s:.2f} s: its {len(files)} files "
+          "byte for byte those of --device cpu (the trajectories' "
+          "quaternions by one mat2quat on each)")
+
+
 def geo_trace(dev, root: str, sizes: GeoSizes) -> int:
     """`cli.serve --trace-dir` on one synthetic scene: the trace parses and
     names kernel #1 as many times as the call launched it.  Returns the
@@ -4002,13 +4111,17 @@ def run_geo(dev, root: str, model: RelPoseGNN,
     geo_geometry(dev, root)
     launches = {}
     launches["geo cli.test"], pgo_ms = geo_pgo(dev, root, sizes)
+    long_ms, targ = geo_pgo_long(dev, sizes)
+    pgo_ms.update(long_ms)
+    geo_sequences(dev, root, targ)
     launches["geo cli.serve --trace-dir"] = geo_trace(dev, root, sizes)
     launches["geo StepTimer cached eval"] = geo_tooling(dev, root, model,
                                                         sizes)
     phase("geo", f"phase time {time.perf_counter() - t0:.1f} s; VLAD build "
           f"{vlad_ms['build_ms']:.2f} ms, query {vlad_ms['query_ms']:.3f} "
           f"ms; PGO chain {pgo_ms['pgo chain']:.1f} ms, fc "
-          f"{pgo_ms['pgo fc']:.1f} ms; attention kernel launches "
+          f"{pgo_ms['pgo fc']:.1f} ms, chain over {sizes.long_chain} "
+          f"{pgo_ms['pgo chain long']:.1f} ms; attention kernel launches "
           f"{launches}")
     return launches
 

@@ -39,8 +39,6 @@ Subpackages:
   config.py   the whole configuration tree with a JSON round trip
 """
 
-import contextlib
-
 import torch
 
 __version__ = "0.2.0"
@@ -63,16 +61,20 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
     return default_device() if device is None else torch.device(device)
 
 
-@contextlib.contextmanager
-def full_fp32():
-    """Float32 GEMMs at full precision inside the block, whatever the
-    caller set: with `torch.backends.cuda.matmul.allow_tf32` on, a CUDA
-    float32 product rounds its inputs to TF32 (10-bit mantissa).  Used
-    where a result feeds an argmin or a solve, as the JAX package pins
-    `Precision.HIGHEST` there."""
-    flag = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = flag
+def require_full_fp32(x: torch.Tensor) -> None:
+    """Raise where a float32 product of `x` on the card would take TF32.
+
+    The port's one precision policy: float32 products at full precision,
+    TF32 off (torch's default; every entry point pins it for its process,
+    `cli.pin_full_fp32`).  The products whose results decide an argmin or
+    a ranking (kNN distances, retrieval similarities, VLAD assignments,
+    the distance export), where the JAX package pins `Precision.HIGHEST`,
+    call this: they refuse a caller's TF32 rather than take it, and never
+    change the flag themselves."""
+    if (x.is_cuda and x.dtype == torch.float32
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is True: this float32 "
+            "product decides a ranking and must run at full precision; set "
+            "it to False (the port's entry points do)")
+

@@ -27,10 +27,11 @@
 
 Counterparts of the JAX package's `cli/` scripts of the same names: the
 same flags, defaults, choices and experiment names, plus `--device`
-(default: the CUDA card; `cpu` must be asked for; `scenes2seq` is host
-only).  ORB, the KMeans dictionary, PnP and the trajectory plots are host
-calls into OpenCV, scikit-learn and matplotlib, which the card's machine
-does not have.  An Orbax checkpoint directory of the JAX package is
+(default: the CUDA card; `cpu` must be asked for).  Each pins float32
+products at full precision for its process (`pin_full_fp32`).  ORB, the
+KMeans dictionary, PnP and the trajectory plots are host calls into
+OpenCV, scikit-learn and matplotlib, which the card's machine does not
+have.  An Orbax checkpoint directory of the JAX package is
 refused with NotImplementedError naming the way across; nothing runs on
 the CPU in its place.
 
@@ -62,6 +63,15 @@ from relpose_gnn_tpu_torch.models.netvlad import NetVLADEncoder
 from relpose_gnn_tpu_torch.parallel.multihost import initialize
 from relpose_gnn_tpu_torch.retrieval.netvlad_index import seeded_encoder
 from relpose_gnn_tpu_torch.training import checkpoints as ckpt
+
+
+def pin_full_fp32() -> None:
+    """The port's one precision policy, set for the process by every entry
+    point: float32 products at full precision, never TF32
+    (`torch.backends.cuda.matmul.allow_tf32`, off by default in torch).
+    Library functions never change the flag; those whose products decide
+    an argmin or a ranking refuse TF32 (`require_full_fp32`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def add_device_arg(p) -> None:

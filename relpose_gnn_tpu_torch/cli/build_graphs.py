@@ -35,7 +35,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from relpose_gnn_tpu_torch import resolve_device
-from relpose_gnn_tpu_torch.cli import add_device_arg, netvlad_encoder
+from relpose_gnn_tpu_torch.cli import (add_device_arg, netvlad_encoder,
+                                       pin_full_fp32)
 from relpose_gnn_tpu_torch.data.cambridge import (CAMBRIDGE_SCENES,
                                                   CambridgeLandmark)
 from relpose_gnn_tpu_torch.data.graph_builder import (GraphBuilderConfig,
@@ -97,6 +98,7 @@ def use_netvlad_for(retrieval: str, dataset: str) -> bool:
 def main(argv=None) -> int:
     """Build the stores; returns how many graphs were written."""
     args = parse_args(argv if argv is not None else sys.argv[1:])
+    pin_full_fp32()
     if args.sampling_period is None:
         args.sampling_period = 3 if args.dataset == "Cambridge" else 5
     device = resolve_device(args.device)

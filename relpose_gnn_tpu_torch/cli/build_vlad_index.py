@@ -23,7 +23,7 @@ import sys
 
 import numpy as np
 
-from relpose_gnn_tpu_torch.cli import add_device_arg
+from relpose_gnn_tpu_torch.cli import add_device_arg, pin_full_fp32
 from relpose_gnn_tpu_torch.data.transforms import load_rgb
 from relpose_gnn_tpu_torch.retrieval.vlad import (VLADIndex,
                                                   fit_visual_dictionary,
@@ -47,6 +47,7 @@ def parse_args(argv):
 def main(argv=None) -> VLADIndex:
     """Build and save the index; returns it."""
     args = parse_args(argv if argv is not None else sys.argv[1:])
+    pin_full_fp32()
     paths = sorted(glob.glob(args.image_glob))
     if not paths:
         raise FileNotFoundError(f"no images match {args.image_glob}")

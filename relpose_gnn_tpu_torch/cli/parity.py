@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from relpose_gnn_tpu_torch import resolve_device
-from relpose_gnn_tpu_torch.cli import add_device_arg
+from relpose_gnn_tpu_torch.cli import add_device_arg, pin_full_fp32
 from relpose_gnn_tpu_torch.data.cambridge import CAMBRIDGE_SCENES
 from relpose_gnn_tpu_torch.data.packed import PackedGraphDataset
 from relpose_gnn_tpu_torch.data.pipeline import (data_iterator,
@@ -150,6 +150,7 @@ def main(argv=None) -> list:
     """Evaluate; returns [(scene, PoseErrors, published (t, rot) or
     None)]."""
     args = parse_args(argv if argv is not None else sys.argv[1:])
+    pin_full_fp32()
     device = resolve_device(args.device)
     if args.scenes:
         scenes = args.scenes.split(",")

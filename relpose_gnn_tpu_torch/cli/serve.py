@@ -46,8 +46,8 @@ import torch
 
 from relpose_gnn_tpu_torch import resolve_device
 from relpose_gnn_tpu_torch.cli import (add_device_arg, end_processes,
-                                       netvlad_encoder, refuse_unported,
-                                       start_processes)
+                                       netvlad_encoder, pin_full_fp32,
+                                       refuse_unported, start_processes)
 from relpose_gnn_tpu_torch.data.cambridge import (CambridgeLandmark,
                                                   load_pose_stats)
 from relpose_gnn_tpu_torch.data.graph_builder import _fit
@@ -231,6 +231,7 @@ def main(argv=None):
     """Serve; returns the PoseErrors of the one scene, or {scene:
     PoseErrors} for several."""
     args = parse_args(argv if argv is not None else sys.argv[1:])
+    pin_full_fp32()
     refuse_unported(args)
     started = start_processes(args)
     try:

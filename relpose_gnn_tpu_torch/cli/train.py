@@ -17,7 +17,8 @@ import argparse
 import sys
 
 from relpose_gnn_tpu_torch.cli import (add_device_arg, end_processes,
-                                       refuse_unported, start_processes)
+                                       pin_full_fp32, refuse_unported,
+                                       start_processes)
 from relpose_gnn_tpu_torch.training.experiment import (ExperimentConfig,
                                                        run_training)
 
@@ -106,6 +107,7 @@ def parse_args(argv):
 def main(argv=None) -> dict:
     """Train; returns run_training's {"state", "best"}."""
     args = parse_args(argv if argv is not None else sys.argv[1:])
+    pin_full_fp32()
     refuse_unported(args)
     started = start_processes(args)
     try:

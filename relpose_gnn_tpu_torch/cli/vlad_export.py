@@ -9,7 +9,7 @@ pairwiseDistace.py, VLADtoCSV.py and VLADtoPRJ.py in one command):
     index's descriptors, comma-delimited, in `<output>.txt` (the name the
     reference writes); computed on the device (`--device`, default the
     card) in float32 as |a|^2 + |b|^2 - 2ab from one Gram product at full
-    precision (`full_fp32`);
+    precision (TF32 refused, `require_full_fp32`);
   * `--format csv`: one `imageID,f0,f1,...` row a descriptor;
   * `--format prj`: the DY layout (`DY`, count, dim, `0;1;...;d`, then
     `name.txt;f0;...;fd;0.0` rows), `--scale` min-max scaling each
@@ -28,17 +28,17 @@ import sys
 import numpy as np
 import torch
 
-from relpose_gnn_tpu_torch import full_fp32, resolve_device
-from relpose_gnn_tpu_torch.cli import add_device_arg
+from relpose_gnn_tpu_torch import require_full_fp32, resolve_device
+from relpose_gnn_tpu_torch.cli import add_device_arg, pin_full_fp32
 from relpose_gnn_tpu_torch.retrieval.vlad import VLADIndex
 
 
-@full_fp32()
 def pairwise_euclidean(V: np.ndarray, device=None) -> np.ndarray:
     """All-pairs Euclidean distances [M, M] of the rows of V, float32 on
     `device` (None: the card)."""
     v = torch.as_tensor(np.asarray(V, np.float32), device=resolve_device(
         device))
+    require_full_fp32(v)
     g = v @ v.T
     sq = torch.diagonal(g)   # the Gram's own diagonal: d(i, i) is exactly 0
     d2 = torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * g, 0.0)
@@ -62,6 +62,7 @@ def parse_args(argv):
 def main(argv=None) -> str:
     """Write the export; returns its path."""
     args = parse_args(argv if argv is not None else sys.argv[1:])
+    pin_full_fp32()
     index = VLADIndex.load(args.index, device="cpu")
     if index.descriptors is None:
         raise ValueError(f"{args.index}: the index has no descriptors")

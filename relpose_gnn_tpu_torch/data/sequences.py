@@ -14,10 +14,14 @@ reference's vendored sequence tooling, SURVEY.md section 2.2 E3):
     split-concatenated `train_frames.bin` / `test_frames.bin` pickles;
   * the TUM exports and readers, and `load_frames_bin`.
 
-Host code (numpy, json, pickle); the quaternions of the TUM exports come
-from the port's `ops/pose.py::mat2quat` in float32 on the CPU, as the JAX
-module takes them from its own in float32.  Every file is the JAX
-module's byte for byte.  Kinect defaults as scenes2seq.py:69: depth
+Host code (numpy, json, pickle) but for the quaternions of the TUM
+exports: every frame's camera-to-world rotation goes through one call of
+the port's `ops/pose.py::mat2quat` in float32 on `device` (None: the
+card), as the JAX module takes them from its own in float32 on its
+default device.  `mat2quat` is elementwise IEEE arithmetic (its square
+roots and its norm's fused multiply-adds rounded exactly), so the card
+and the CPU give the same bits, and every file is the JAX module's byte
+for byte.  Kinect defaults as scenes2seq.py:69: depth
 intrinsics (585, 585, 320, 240), frame dim (480, 640).
 """
 
@@ -32,6 +36,7 @@ import pickle
 import numpy as np
 import torch
 
+from relpose_gnn_tpu_torch import resolve_device
 from relpose_gnn_tpu_torch.ops import pose as pose_ops
 
 SEVEN_SCENES_INTRINSIC = (585.0, 585.0, 320.0, 240.0, 0.0, 0.0)
@@ -130,10 +135,12 @@ def scene_to_frame_seq(scene_root: str, seq_name: str,
     return seq
 
 
-def scenes_to_sequences(scene_root: str, dst_dir: str | None = None) -> dict:
+def scenes_to_sequences(scene_root: str, dst_dir: str | None = None,
+                        device=None) -> dict:
     """Full scenes2seq pipeline for one scene directory: per-seq `seq.json`
     + `K.txt`, then split-concatenated `train_frames.bin` /
-    `test_frames.bin` pickles (scenes2seq.py:109-216)."""
+    `test_frames.bin` pickles (scenes2seq.py:109-216).  The trajectories'
+    quaternions are taken on `device` (None: the card)."""
     dst_dir = dst_dir or scene_root
     os.makedirs(dst_dir, exist_ok=True)
 
@@ -151,7 +158,8 @@ def scenes_to_sequences(scene_root: str, dst_dir: str | None = None) -> dict:
         np.savetxt(osp.join(out, "K.txt"), K_from_frame(seq.frames[0]))
         export_tum_img_info(seq, osp.join(out, "rgb.txt"),
                             osp.join(out, "depth.txt"))
-        export_tum_trajectory(seq, osp.join(out, "groundtruth.txt"))
+        export_tum_trajectory(seq, osp.join(out, "groundtruth.txt"),
+                              device)
         per_seq[seq_name] = seq
 
     def split_ids(split_file):
@@ -177,11 +185,19 @@ def scenes_to_sequences(scene_root: str, dst_dir: str | None = None) -> dict:
     return out_paths
 
 
-def _quat_wxyz(R: np.ndarray) -> np.ndarray:
-    """The unit quaternion (w, x, y, z) of a rotation matrix, in float32
-    on the CPU."""
-    return pose_ops.mat2quat(torch.from_numpy(
-        np.asarray(R, np.float32))).numpy()
+def _camera_to_world(seq: FrameSeq, device) -> tuple:
+    """Every frame's camera-to-world translation [N, 3] (numpy, as the
+    JAX module forms it) and unit quaternion (w, x, y, z) [N, 4], the
+    latter by one float32 `mat2quat` on `device` (None: the card)."""
+    Rwc, twc = [], []
+    for fr in seq.frames:
+        Tcw = np.asarray(fr["extrinsic_Tcw"])
+        R, t = Tcw[:3, :3], Tcw[:3, 3]
+        Rwc.append(R.T)
+        twc.append(-R.T @ t)
+    q = pose_ops.mat2quat(torch.as_tensor(
+        np.asarray(Rwc, np.float32), device=resolve_device(device)))
+    return twc, q.cpu().numpy()
 
 
 def export_tum_img_info(seq: FrameSeq, rgb_txt: str,
@@ -202,44 +218,38 @@ def export_tum_img_info(seq: FrameSeq, rgb_txt: str,
                             f"{fr['depth_file_name']}\n")
 
 
-def export_tum_trajectory(seq: FrameSeq, path: str) -> None:
+def export_tum_trajectory(seq: FrameSeq, path: str, device=None) -> None:
     """TUM groundtruth format: `timestamp tx ty tz qx qy qz qw` of the
     camera-to-world pose (tum_seq2ares.py::export_to_tum_format equivalent,
-    scenes2seq.py:166-170)."""
+    scenes2seq.py:166-170); quaternions on `device` (None: the card)."""
+    twc, q = _camera_to_world(seq, device) if seq.frames else ((), ())
     with open(path, "w") as f:
         f.write("# trajectory\n# timestamp tx ty tz qx qy qz qw\n")
-        for fr in seq.frames:
-            Tcw = np.asarray(fr["extrinsic_Tcw"])
-            R, t = Tcw[:3, :3], Tcw[:3, 3]
-            Rwc, twc = R.T, -R.T @ t
-            q = _quat_wxyz(Rwc)
+        for fr, t, qi in zip(seq.frames, twc, q):
             f.write(f"{fr['timestamp']:.6f} "
-                    f"{twc[0]:.6f} {twc[1]:.6f} {twc[2]:.6f} "
-                    f"{q[1]:.6f} {q[2]:.6f} {q[3]:.6f} {q[0]:.6f}\n")
+                    f"{t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
+                    f"{qi[1]:.6f} {qi[2]:.6f} {qi[3]:.6f} {qi[0]:.6f}\n")
 
 
 TUM_INTRINSIC = (525.0, 525.0, 319.5, 239.5, 0.0, 0.0)  # tum_seq2ares.py:88-92
 TUM_DIM = (480, 640)
 
 
-def export_tum_associate(seq: FrameSeq, path: str) -> None:
+def export_tum_associate(seq: FrameSeq, path: str, device=None) -> None:
     """TUM rgb/depth/pose ASSOCIATION file: one line per frame,
     `ts rgb_path ts depth_path ts tx ty tz qx qy qz qw` — the
     `rdpose_associate.txt` layout `read_tum_sequence` ingests (the format
     `export_to_tum_format(write_img_info=True)` emits,
     tum_seq2ares.py:63-75).  Poses are camera-to-world, TUM quaternion
-    order (qw LAST)."""
+    order (qw LAST); quaternions on `device` (None: the card)."""
+    twc, q = _camera_to_world(seq, device) if seq.frames else ((), ())
     with open(path, "w") as f:
-        for fr in seq.frames:
-            Tcw = np.asarray(fr["extrinsic_Tcw"])
-            R, t = Tcw[:3, :3], Tcw[:3, 3]
-            Rwc, twc = R.T, -R.T @ t
-            q = _quat_wxyz(Rwc)
+        for fr, t, qi in zip(seq.frames, twc, q):
             ts = f"{fr['timestamp']:.6f}"
             f.write(f"{ts} {fr['file_name']} {ts} "
                     f"{fr.get('depth_file_name') or 'none'} {ts} "
-                    f"{twc[0]:.9f} {twc[1]:.9f} {twc[2]:.9f} "
-                    f"{q[1]:.9f} {q[2]:.9f} {q[3]:.9f} {q[0]:.9f}\n")
+                    f"{t[0]:.9f} {t[1]:.9f} {t[2]:.9f} "
+                    f"{qi[1]:.9f} {qi[2]:.9f} {qi[3]:.9f} {qi[0]:.9f}\n")
 
 
 def read_tum_sequence(tum_base_dir: str, seq_name: str) -> FrameSeq:

@@ -76,7 +76,8 @@ from relpose_gnn_tpu_torch.parallel.multihost import (gather_rows, host_read,
 from relpose_gnn_tpu_torch.parallel.sharded_db import select_and_lookup
 from relpose_gnn_tpu_torch.parallel.sharding import batch_rows
 from relpose_gnn_tpu_torch.retrieval.subsample import (
-    fold_in, ranked_indices, subsample_neighbors_batch)
+    SIM_BLOCK, fold_in, ranked_indices, similarities,
+    subsample_neighbors_batch)
 
 _RANK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -207,39 +208,6 @@ def _compact(desc, emb, poses, valid, count, take=None):
     take = take or (lambda table, p: table[p])
     return (take(desc, perm), take(emb, perm), poses[perm], new_valid,
             n_valid, old_to_new)
-
-
-# The table's similarities are computed in blocks of this many rows, so
-# that no value's sum depends on how many rows the table has: cuBLAS picks
-# its reduction order (split-K) by the output's shape, which moved values
-# by up to 5e-6 relative between a 2048-row table and its halves on the
-# H100, enough to reorder near-ties.  A table sharded over ranks
-# (parallel/sharded_db.py) then ranks by the very values the whole table
-# gives, wherever its rows per rank are a multiple of the block.
-SIM_BLOCK = 512
-
-
-def similarities(q_desc: torch.Tensor,
-                 db_desc: torch.Tensor) -> torch.Tensor:
-    """[B, Dv] x [M, Dv] -> float32 [B, M].  The table is in rank_dtype
-    and the query is cast to it; products accumulate in float32 and come
-    out in float32 (a bfloat16 GEMM that rounded its output to bfloat16
-    would erase the ranking).  On the card that is
-    `mm(..., out_dtype=float32)`, which reads the table as it is stored;
-    the CPU has no such GEMM, so there both operands are widened first,
-    which gives the same products and sums.  One product per SIM_BLOCK
-    rows of the table."""
-    q = q_desc.to(db_desc.dtype)
-
-    def block(t):
-        if t.dtype == torch.float32:
-            return q @ t.T
-        if t.device.type == "cuda":
-            return torch.mm(q, t.T, out_dtype=torch.float32)
-        return q.float() @ t.float().T
-
-    return torch.cat([block(db_desc[i:i + SIM_BLOCK])
-                      for i in range(0, db_desc.shape[0], SIM_BLOCK)], 1)
 
 
 @dataclasses.dataclass

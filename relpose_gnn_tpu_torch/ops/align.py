@@ -9,15 +9,14 @@ the inputs' device.
 `torch.linalg.svd` may give singular vectors of other signs than
 `jnp.linalg.svd`; the rotation U diag(1, .., det) V^T does not depend on
 them where the singular values are distinct, which is where the rotation
-is unique at all.  The products run at full float32 precision whatever
-the caller's TF32 flag (`full_fp32`), as in the JAX package.
+is unique at all.  The products take the port's precision policy, TF32
+off (pinned by the entry points, `cli.pin_full_fp32`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from relpose_gnn_tpu_torch import full_fp32
 from relpose_gnn_tpu_torch.ops import pose as pose_ops
 
 
@@ -50,7 +49,6 @@ def _translation(s, R, mx, my):
         "...ij,...j->...i", R, mx[..., 0, :])
 
 
-@full_fp32()
 def align_pts(x: torch.Tensor, y: torch.Tensor, with_scale: bool = True
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Least-squares similarity transform y ~= s R x + t over point sets
@@ -81,14 +79,12 @@ def align_2d_pts(x: torch.Tensor, y: torch.Tensor):
     return align_pts(x, y, with_scale=True)
 
 
-@full_fp32()
 def apply_similarity(s, R, t, x: torch.Tensor) -> torch.Tensor:
     """y = s R x + t, batched over points."""
     return (s[..., None, None] * torch.einsum("...ij,...nj->...ni", R, x)
             + t[..., None, :])
 
 
-@full_fp32()
 def align_camera_poses(t_pred: torch.Tensor, q_pred: torch.Tensor,
                        t_gt: torch.Tensor, q_gt: torch.Tensor,
                        with_scale: bool = True,

@@ -10,8 +10,8 @@ Port of `relpose_gnn_tpu/ops/graph.py`, same layouts:
 Two properties carry over exactly, because the eval anchor depends on them:
 
 * Distances are full float32.  The JAX code asks for `Precision.HIGHEST`;
-  here the matmul must not take TF32 (`torch.backends.cuda.matmul.
-  allow_tf32` is False by default; callers keep it so).
+  here the matmul must not take TF32, and `pairwise_sq_dists` refuses it
+  (`require_full_fp32`; off by default, pinned by the entry points).
 * Ties break lower index first, like `lax.top_k` and `argmin`: every
   top-k is a stable ascending sort, never bare `torch.topk`, whose order
   among equal values is unspecified on CUDA.
@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from relpose_gnn_tpu_torch import require_full_fp32
 
 # ---------------------------------------------------------------------------
 # Static edge tables (host-side numpy)
@@ -143,6 +145,7 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
     """Squared L2 distances [..., N, D] -> [..., N, N], in the same
     ||a||^2 - 2ab + ||b||^2 form and order as the JAX op."""
+    require_full_fp32(x)
     sq = torch.sum(x * x, dim=-1)
     inner = torch.matmul(x, x.transpose(-1, -2))
     d = sq[..., :, None] - 2.0 * inner + sq[..., None, :]

@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from relpose_gnn_tpu_torch import full_fp32, resolve_device
+from relpose_gnn_tpu_torch import resolve_device
 from relpose_gnn_tpu_torch.ops import pose as pose_ops
 
 
@@ -55,7 +55,6 @@ def _residuals(z, poses, vos, src, dst, weights) -> torch.Tensor:
                       (w_rq * rq).reshape(-1)])
 
 
-@full_fp32()
 def _optimize(z, poses, vos, src, dst, weights, n_iters: int,
               damping: float) -> torch.Tensor:
     def res_of_delta(delta, z):
@@ -95,7 +94,7 @@ def optimize_pose_graph(pred_poses, vos, fc: bool = False, sax: float = 1.0,
 
     Weights are 1/sqrt(sigma), as the reference's Cholesky factor of the
     information.  Runs on `device` (None: the card) in float32 as the JAX
-    function does; `dtype=torch.float64` gives a reference evaluation."""
+    function does (TF32 off, as the entry points pin it); `dtype=torch.float64` gives a reference evaluation."""
     dev = resolve_device(device)
     z0 = torch.tensor(np.asarray(pred_poses), dtype=dtype, device=dev)
     n = z0.shape[0]

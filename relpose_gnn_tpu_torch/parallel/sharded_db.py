@@ -26,7 +26,7 @@ Exactness against the replicated layout (tests/test_torch_sharded_db.py):
 
   * each similarity is computed whole on one rank, in the table's
     rank_dtype with float32 accumulation, as the replicated path does,
-    and by the same GEMM: `evaluation/service.py::similarities` multiplies
+    and by the same GEMM: `retrieval/subsample.py::similarities` multiplies
     in blocks of SIM_BLOCK table rows, so with M / n a multiple of the
     block a rank's values are the whole table's bit for bit (cuBLAS sums
     in another order for another output shape);
@@ -61,7 +61,8 @@ from relpose_gnn_tpu_torch.parallel.multihost import all_gather_blocks
 from relpose_gnn_tpu_torch.retrieval.subsample import (draw_starts,
                                                        draw_survive_bits,
                                                        ranked_indices,
-                                                       select_ranked_batch)
+                                                       select_ranked_batch,
+                                                       similarities)
 
 # the JAX dense path draws its stochastic drop bits in chunks of this many
 # rank positions and windows the candidates to whole chunks
@@ -86,8 +87,6 @@ def select_and_lookup(q_desc: torch.Tensor, desc: torch.Tensor,
     [B, k] int64 global indices, nbr_emb [B, k, D]), equal on every rank.
     The selection is the replicated service's, mode by mode (module
     docstring); `seed` keys the stochastic draws."""
-    from relpose_gnn_tpu_torch.evaluation.service import similarities
-
     b = q_desc.shape[0]
     n = axis_size(mesh, axis)
     m_l = desc.shape[0]

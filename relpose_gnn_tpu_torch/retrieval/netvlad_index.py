@@ -109,12 +109,12 @@ class NetVLADIndex:
 
     def similarities(self, query_desc: np.ndarray) -> np.ndarray:
         """Cosine similarity of queries vs the whole DB: [Q, M], in full
-        float32 (ranking is sensitive on near-duplicate frames; callers
-        on the card keep TF32 off)."""
+        float32 (ranking is sensitive on near-duplicate frames; TF32 is
+        refused), by the port's one scorer (`subsample.similarities`)."""
         db = self._require_built()
         q = torch.as_tensor(query_desc, dtype=torch.float32,
                             device=self.device)
-        return (q @ db.T).cpu().numpy()
+        return subsample.similarities(q, db).cpu().numpy()
 
     def topk(self, query_desc: np.ndarray, k: int):
         scores, idx = subsample.cosine_topk(

@@ -18,8 +18,9 @@ form with the exact windowed fast path.  Where it differs from the JAX one:
   lower index first; `torch.topk` promises no order among equals.  Ranking
   here goes through `ranked_indices`: each (key, index) pair becomes one
   int64 that sorts like the pair, so no two entries are equal and every
-  top-k and sort is lower-index-first by construction (duplicate frames
-  give exactly equal similarities).
+  top-k and sort is lower-index-first by construction (equal
+  similarities, such as duplicate frames get wherever the GEMM scores
+  equal rows alike).
 * **Draws are counter-based.**  `jax.random` bits cannot be reproduced, so
   drawing is split from selecting.  `select_ranked_batch` is the
   deterministic core and takes the drop bits and start offsets as inputs
@@ -37,7 +38,45 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from relpose_gnn_tpu_torch import require_full_fp32
+
 _M32 = 0xFFFFFFFF
+
+
+# The table's similarities are computed in blocks of this many rows, so
+# that no value's sum depends on how many rows the table has: cuBLAS picks
+# its reduction order (split-K) by the output's shape, which moved values
+# by up to 5e-6 relative between a 2048-row table and its halves on the
+# H100, enough to reorder near-ties.  A table sharded over ranks
+# (parallel/sharded_db.py) then ranks by the very values the whole table
+# gives, wherever its rows per rank are a multiple of the block.
+SIM_BLOCK = 512
+
+
+def similarities(q_desc: torch.Tensor,
+                 db_desc: torch.Tensor) -> torch.Tensor:
+    """[B, Dv] x [M, Dv] -> float32 [B, M].  The table is float32 or
+    bfloat16 (the service's rank_dtype) and the query is cast to it; products accumulate in float32 and come
+    out in float32 (a bfloat16 GEMM that rounded its output to bfloat16
+    would erase the ranking).  On the card that is
+    `mm(..., out_dtype=float32)`, which reads the table as it is stored;
+    the CPU has no such GEMM, so there both operands are widened first,
+    which gives the same products and sums.  One product per SIM_BLOCK
+    rows of the table.  Every index of the port scores its table so
+    (the service, `NetVLADIndex`, `VLADIndex`); a float32 table refuses
+    TF32 (`require_full_fp32`)."""
+    require_full_fp32(db_desc)
+    q = q_desc.to(db_desc.dtype)
+
+    def block(t):
+        if t.dtype == torch.float32:
+            return q @ t.T
+        if t.device.type == "cuda":
+            return torch.mm(q, t.T, out_dtype=torch.float32)
+        return q.float() @ t.float().T
+
+    return torch.cat([block(db_desc[i:i + SIM_BLOCK])
+                      for i in range(0, db_desc.shape[0], SIM_BLOCK)], 1)
 
 
 def subsample_ranked_numpy(sorted_indices: np.ndarray, k: int,

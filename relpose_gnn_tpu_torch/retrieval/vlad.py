@@ -13,12 +13,12 @@ normalisation -> exact top-k over a dense table.
     residual sums by a one-hot assignment GEMM, signed square root, L2;
     batched over images of different descriptor counts by a row mask;
   * `VLADIndex` keeps its [M, K*D] table on its device and returns the
-    exact top-k, ties to the lower index (row-wise sums, a stable sort).
+    exact top-k, ties to the lower index (a stable sort), the table
+    scored by the port's one scorer (`subsample.similarities`).
 
-The products whose results feed the argmin run at full float32
-precision whatever the caller's TF32 flag (`full_fp32`), as the JAX
-module pins `Precision.HIGHEST`; the ranking's row sums take no GEMM.
-The index pickle is the JAX module's, `{"centers": [K, D], "descriptors": [M, K*D] or None}` as
+The products whose results feed the argmin and the ranking run at full
+float32 precision, as the JAX module pins `Precision.HIGHEST`: they
+refuse TF32 (`require_full_fp32`).  The index pickle is the JAX module's, `{"centers": [K, D], "descriptors": [M, K*D] or None}` as
 float32 numpy arrays, so each package loads the other's index files.
 """
 
@@ -29,10 +29,10 @@ import pickle
 import numpy as np
 import torch
 
-from relpose_gnn_tpu_torch import full_fp32, resolve_device
+from relpose_gnn_tpu_torch import require_full_fp32, resolve_device
+from relpose_gnn_tpu_torch.retrieval.subsample import similarities
 
 BUILD_CHUNK = 256   # images aggregated at a time by `VLADIndex.build`
-SIM_ELEMS = 1 << 26  # products held at a time by `similarities` (256 MB)
 
 
 def orb_descriptors(image_u8: np.ndarray, n_features: int = 500
@@ -61,7 +61,6 @@ def fit_visual_dictionary(descriptors: np.ndarray, k: int,
     return km.cluster_centers_.astype(np.float32)
 
 
-@full_fp32()
 def vlad_aggregate(descriptors: torch.Tensor, centers: torch.Tensor,
                    valid: torch.Tensor | None = None) -> torch.Tensor:
     """VLAD vector of one image's local descriptors, or of a batch.
@@ -72,6 +71,7 @@ def vlad_aggregate(descriptors: torch.Tensor, centers: torch.Tensor,
     the residuals are summed per center, then signed-square-rooted and
     L2-normalised (the reference's `improvedVLAD`).  Returns [K*D] (or
     [B, K*D])."""
+    require_full_fp32(descriptors)
     d2 = (torch.sum(descriptors ** 2, dim=-1)[..., None]
           - 2.0 * descriptors @ centers.T
           + torch.sum(centers ** 2, dim=-1))
@@ -141,20 +141,11 @@ class VLADIndex:
 
     def similarities(self, q: torch.Tensor) -> torch.Tensor:
         """Inner products [B, M] (or [M]) of VLAD vectors q [B, K*D] (or
-        [K*D]) with the table, in float32.
-
-        Each is a product and a sum along one row, the same arithmetic for
-        every row, so equal table rows (a repeated frame) score equal and
-        the ranking puts the lower index first; a GEMV or GEMM does not
-        promise that (MKL's CPU GEMV scores two equal rows an ulp apart).
-        Queries go SIM_ELEMS // (M K D) at a time."""
+        [K*D]) with the table, in float32 (`subsample.similarities`)."""
         if self.table is None:
             raise ValueError("the index has no descriptors: build it first")
         q = q.to(self.device, torch.float32)
-        rows = q.reshape(-1, q.shape[-1])
-        step = max(1, SIM_ELEMS // self.table.numel())
-        sim = torch.cat([torch.sum(rows[i:i + step, None] * self.table, -1)
-                         for i in range(0, len(rows), step)])
+        sim = similarities(q.reshape(-1, q.shape[-1]), self.table)
         return sim.reshape(q.shape[:-1] + (len(self.table),))
 
     def query(self, local_descs: np.ndarray, k: int):

@@ -205,8 +205,7 @@ def _jax_main_namespace(name: str, argv: list) -> dict:
 ])
 def test_tool_entries_parse_args_equal_jax(name, module, argv):
     got = vars(module.parse_args(argv))
-    if name != "scenes2seq":          # host only: no --device
-        assert got.pop("device") is None
+    assert got.pop("device") is None
     assert got == _jax_main_namespace(name, argv)
 
 

@@ -219,7 +219,8 @@ def _same_tree(a, b):
 
 def test_scenes_to_sequences_byte_equal(raw_scene, tmp_path):
     want = jax_seq.scenes_to_sequences(raw_scene, str(tmp_path / "jax"))
-    got = sequences.scenes_to_sequences(raw_scene, str(tmp_path / "port"))
+    got = sequences.scenes_to_sequences(raw_scene, str(tmp_path / "port"),
+                                        device="cpu")
     assert sorted(got) == sorted(want) == ["test", "train"]
     files = _same_tree(str(tmp_path / "jax"), str(tmp_path / "port"))
     assert len(files) == 3 * 5 + 2
@@ -235,10 +236,12 @@ def test_tum_exports_and_readers_byte_equal(raw_scene, tmp_path):
     for name, fn in (("rgb.txt", "export_tum_img_info"),
                      ("gt.txt", "export_tum_trajectory"),
                      ("assoc.txt", "export_tum_associate")):
-        for mod, seq, who in ((jax_seq, jseq, "jax"),
-                              (sequences, pseq, "port")):
-            os.makedirs(tmp_path / who / "tum" / "s", exist_ok=True)
-            getattr(mod, fn)(seq, str(tmp_path / who / name))
+        os.makedirs(tmp_path / "jax" / "tum" / "s", exist_ok=True)
+        os.makedirs(tmp_path / "port" / "tum" / "s", exist_ok=True)
+        getattr(jax_seq, fn)(jseq, str(tmp_path / "jax" / name))
+        getattr(sequences, fn)(pseq, str(tmp_path / "port" / name),
+                               *(("cpu",) if fn != "export_tum_img_info"
+                                 else ()))
     # TUM ingest of the association file, and the seq.json it dumps
     for mod, who in ((jax_seq, "jax"), (sequences, "port")):
         os.replace(tmp_path / who / "assoc.txt",
@@ -256,7 +259,8 @@ def test_scenes2seq_cli_byte_equal(raw_scene, tmp_path):
     finally:
         sys.path.remove(osp.join(REPO, "cli"))
     jax_cli.main([raw_scene, "--dst-dir", str(tmp_path / "jax")])
-    out = scenes2seq.main([raw_scene, "--dst-dir", str(tmp_path / "port")])
+    out = scenes2seq.main([raw_scene, "--dst-dir", str(tmp_path / "port"),
+                           "--device", "cpu"])
     assert sorted(out) == ["test", "train"]
     _same_tree(str(tmp_path / "jax"), str(tmp_path / "port"))
 

@@ -37,6 +37,8 @@ import pickle
 
 import jax
 import jax.numpy as jnp
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -44,6 +46,7 @@ from scipy.spatial.transform import Rotation
 
 from relpose_gnn_tpu.data import graph_builder as jax_gb
 from relpose_gnn_tpu.retrieval import vlad as jax_vlad
+from relpose_gnn_tpu_torch import require_full_fp32
 from relpose_gnn_tpu_torch.cli import build_graphs as port_build_graphs
 from relpose_gnn_tpu_torch.cli import build_vlad_index as port_index_cli
 from relpose_gnn_tpu_torch.cli import vlad_export as port_export_cli
@@ -158,11 +161,36 @@ def test_index_topk_order_equals_jax():
 
 
 def test_index_ties_go_to_the_lower_row():
-    centers, imgs = _random_index_inputs(2, m=6)
-    p = vlad.VLADIndex(centers, device="cpu")
-    p.build(imgs[:3] + imgs[:3])               # rows 3-5 repeat rows 0-2
-    _, idx = p.query(imgs[1], 6)
-    assert list(idx[:2]) == [1, 4]
+    """Equal scores rank the lower row first.  The table's entries and the
+    query's VLAD vector are exact in binary (one descriptor a unit from
+    its center gives e_0), so any GEMM scores rows 3-5 exactly as rows
+    0-2; repeated frames need not (the CPU's GEMV may score two equal
+    rows an ulp apart, in the JAX package as here)."""
+    centers = np.array([[0.0, 0.0], [100.0, 100.0]], np.float32)
+    table = np.zeros((6, 4), np.float32)
+    table[:, 0] = [0.25, 0.75, 0.5, 0.25, 0.75, 0.5]
+    p = vlad.VLADIndex(centers, table, device="cpu")
+    scores, idx = p.query(np.array([[1.0, 0.0]], np.float32), 6)
+    assert list(idx) == [1, 4, 2, 5, 0, 3]
+    assert list(scores) == [0.75, 0.75, 0.5, 0.5, 0.25, 0.25]
+
+
+@pytest.mark.parametrize("dtype,is_cuda,refused", [
+    (torch.float32, True, True), (torch.bfloat16, True, False),
+    (torch.float32, False, False)])
+def test_ranking_products_refuse_tf32(monkeypatch, dtype, is_cuda, refused):
+    """Under TF32, a float32 product on the card that decides a ranking
+    raises rather than run (`require_full_fp32`); a bfloat16 one or one on
+    the CPU takes no TF32 and runs."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    x = types.SimpleNamespace(is_cuda=is_cuda, dtype=dtype)
+    if refused:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            require_full_fp32(x)
+    else:
+        require_full_fp32(x)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    require_full_fp32(x)
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
@@ -314,6 +342,17 @@ def test_index_clis_write_the_same_index(indexed):
         text = b.read()
         assert text == a.read()
     assert "seq-02/frame-000003" not in text      # the flat frame, skipped
+
+
+def test_entry_points_pin_full_fp32(indexed, monkeypatch):
+    """An entry point turns a caller's TF32 off for its process
+    (`cli.pin_full_fp32`), the port's one precision policy."""
+    tmp, _, paths = indexed
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    port_export_cli.main(["--index", paths["port"], "--output",
+                          str(tmp / "export_pinned"), "--format", "csv",
+                          "--device", "cpu"])
+    assert torch.backends.cuda.matmul.allow_tf32 is False
 
 
 @pytest.mark.parametrize("fmt", ["csv", "prj", "prj --scale", "distances"])
