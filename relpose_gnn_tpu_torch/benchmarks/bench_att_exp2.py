@@ -15,8 +15,8 @@ The exp2 form is `ops/att_variants.py::exp2_core` (kernel in
 layout of the first production kernel.  Beside it runs the production
 kernel `ops/att_core.py::attention_core`, which has since taken the exp2
 domain over together with a fused logit, raw `ex2.approx` and several
-chains a thread (the exp form it once was is `restructured_core` 'v1',
-timed by `bench_att_variants2`).  Correctness first, on 64 rows: both
+chains a thread (the exp form it once was is `restructured_core` 'v1'
+on route "simple").  Correctness first, on 64 rows: both
 kernels against the plain core and against each other, relative to
 max |y|; the exp2 kernel must be within 1e-5.  Then the two are timed in
 turns (CUDA events, median of `--iters` after warm-up).  One JSON line at

@@ -8,7 +8,8 @@ production attention kernel (`ops/att_core.py`) is bound by its E * C^2
 exponentials and the float32 work around them.  Candidate rewrites, all
 exact (the same function up to float32 rounding), each a hand-written
 kernel of `csrc/att_variants.cu` reached through
-`ops/att_variants.py::variant_core`:
+`ops/att_variants.py::variant_core` on its default route (`route="simple"`
+is the first kernel of each form, which `chip_smoke.py` times beside it):
 
   v1_exp2     : fold log2(e) into phi once per thread, so the per-logit
                 exp(f - m) becomes a raw exp2(f2 - m2); `expf` is a
@@ -16,8 +17,8 @@ kernel of `csrc/att_variants.cu` reached through
                 may remove work.
   v2_mxu      : the two sums over j (z and y) as one product
                 w @ [g | 1] on the tensor cores (`mma.sync` m16n8k8, TF32
-                operands split three ways to keep float32 sums), freeing
-                the FMA pipe of about 3 operations per logit.
+                halves of w and g, float32-accurate sums), freeing the FMA
+                pipe of about 3 operations per logit.
   v3_exp2_mxu : both.
 
 Protocol: each variant is first held to 1e-5 (relative to max |y|) of the

@@ -7,7 +7,7 @@
 Counterpart of the JAX package's `benchmarks/bench_att_variants2.py`.
 Three forms of the attention core, each a hand-written kernel of
 `csrc/att_variants.cu` reached through
-`ops/att_variants.py::restructured_core`:
+`ops/att_variants.py::restructured_core` on its default route:
 
   base  the row max scanned over j in a first pass, then the exp and sum
         pass: what the production TPU body does.
@@ -15,11 +15,12 @@ Three forms of the attention core, each a hand-written kernel of
         bit-exact against the scanned max (the row max of a rank-1 grid
         is attained at max or min theta, and phi_i * tmax is literally
         one of the grid's products, so rounding is identical).  Removes
-        the first pass.  This was the production CUDA kernel's form until
-        its redesign; that kernel keeps the analytic max but builds the
-        logit with one FMA in the exp2 domain, so it agrees with `v1` to
-        1e-5 of max |y| and no longer bit for bit.  `v1` is the parent
-        form it is timed against here.
+        the first pass.  Its first kernel (`route="simple"`) was the
+        production CUDA kernel's form until that kernel's redesign, and
+        is what `chip_smoke.py` times the production kernel against.  The
+        production kernel keeps the analytic max but builds the logit
+        with one FMA in the exp2 domain, so it agrees with `v1` to 1e-5
+        of max |y| and not bit for bit.
   v2    analytic max + j swept in chunks of 128 with (z, y) partial sums
         per chunk, added in chunk order: no rescaling is needed since m
         is known up front.  Two chunks are in flight at once, which

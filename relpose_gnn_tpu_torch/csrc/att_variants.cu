@@ -5,57 +5,102 @@
 //
 // and differs only in how.  They replace the Pallas TPU kernel bodies of
 // three probe benches, and exist for the same reason those did: to find
-// out which restructuring of the production kernel pays on this hardware.
+// out which restructuring of the attention kernel pays on this hardware.
 //
-//   form        replaces (TPU kernel body)                      what differs
+//   form        replaces (TPU kernel body)                      what makes it that form
 //   scanned     relpose_gnn_tpu/ops/att_pallas.py::_kernel, as   row max by a first pass over j
 //               bench_att_variants2.py's `base`
 //   analytic    bench_att_variants2.py::_kernel_v1               row max from max/min theta, one pass
 //   chunked     bench_att_variants2.py::_kernel_v2               analytic max; (z, y) partial sums per
 //                                                                chunk of 128 columns, added in order
 //   exp2        bench_att_variants.py::_kernel_exp2 and          phi scaled by log2(e) once per
-//               bench_att_exp2.py::_kernel_exp2 (one body)       thread; exp2f per logit
+//               bench_att_exp2.py::_kernel_exp2 (one body)       output; 2^x per logit
 //   mma         bench_att_variants.py::_kernel_mxu               the two sums over j as the product
-//   mma_exp2    the same with use_exp2                           w[C, C] @ [g | 1] on the tensor cores
+//   mma_exp2    the same with use_exp2                           w[C, C] @ [g | 1] on the tensor cores,
+//                                                                float32-accurate (Precision.HIGHEST)
 //
-// They are not carried over block by block: no [T, C, C] logits anywhere.
-// All forms share att_core.cu's row layout: one block owns one row e and
-// stages theta[e] and g[e] in shared memory as float32.
+// No [T, C, C] logits anywhere, not even in shared memory.  Inputs are
+// float32 or bfloat16 (converted to float32 on load); the output is
+// float32.  Any 1 <= C <= 1024 and any E >= 0; no padding of E.
 //
-// What bounds them: as att_core.cu, the E * C^2 exponentials (operations,
-// not bytes).  What each form does about it is its name; which of them
-// helps is what benchmarks/bench_att_variants*.py measure.
+// What bounds every form: as att_core.cu, the E * C^2 exponentials
+// (operations, not bytes).  An SM computes 16 exponentials a clock, so a
+// warp's exponential holds the special-function pipe of its scheduler for
+// 8 clocks, in which the scheduler can issue 8 instructions: a loop that
+// spends more than 8 issue slots per logit is bound by issue instead.
 //
-// Scalar forms (scanned, analytic, chunked, exp2): thread i owns output i
-// and keeps its logits in registers, one at a time.  Every logit is the
-// rounded product __fmul_rn(p, theta_j), never contracted into an FMA, and
-// every form but exp2 calls the same expf, so `analytic` equals `scanned`
-// bit for bit: the analytic max max(fl(p * max theta), fl(p * min theta))
-// is one of the scanned products and rounding is monotone.  `chunked`
-// keeps two chunks' accumulators live at once, which breaks the serial
-// z += w; y = fma(w, g, y) chain of the single-pass loop; it differs from
-// `analytic` by summation order only.  `exp2` takes the analytic max of the
-// scaled products; the scaled max is the max of the scaled products since
-// log2(e) > 0.
+// Two routes, chosen by the caller (`route`):
 //
-// Tensor-core forms (mma, mma_exp2): a warp owns a strip of 16 outputs i
-// and issues mma.sync.m16n8k8 (TF32 operands, float32 accumulators) over j
-// in steps of 8.  The logits are rank-1, so each thread computes the four
-// w[i, j] of its A fragment straight into registers from phi_i and
-// theta_j; w never passes through shared memory.  B is [g | 1] padded to
-// n = 8 columns: column 0 gives y, column 1 gives z, six columns are zero.
-// Hopper has no float32 mma, and one TF32 product would round w and g to
-// 10 mantissa bits (about 1e-3).  To keep the TPU body's float32 sums the
-// operands are split, w = w_hi + w_lo and g = g_hi + g_lo with each part
-// exact in TF32 (by truncation, see split_tf32), and three products are
-// accumulated (w_lo g_hi and w_hi g_lo into one accumulator, w_hi g_hi
-// into another, added at the end); what is dropped, w_lo g_lo and the
-// tails of the low parts, is about 2^-20 relative, and the part of it
-// that comes from w is the same in y's numerator and in z.  The ones
-// column is exact in TF32.
+// Route "simple": the first kernels of these forms, kept as they were to
+// time the default route against (att_variant_kernel,
+// att_variant_mma_kernel).  One block per row.  Scalar forms: thread i owns
+// output i; every logit is the rounded product __fmul_rn(p, theta_j) minus
+// the max, then expf (exp2f for exp2), in one serial z += w; acc =
+// fma(w, g, acc) chain a thread, theta_j and g_j as two 4-byte shared loads:
+// 12-15 issue slots per logit, issue-bound (`scanned` adds a whole pass of
+// loads, products and compares).  Tensor-core forms: a warp owns a strip of
+// 16 outputs and issues mma.sync.m16n8k8 (TF32) over j in steps of 8, with
+// B = [g | 1] padded to 8 columns; w and g are split into TF32 halves and
+// three products (w_lo g_hi, w_hi g_lo, w_hi g_hi) are accumulated, and each
+// weight costs the rounded product, a subtraction, a full expf/exp2f and
+// the split: about 15 issue slots per logit.
 //
-// Inputs are float32 or bfloat16 (converted to float32 on load); the output
-// is float32.  Any 1 <= C <= 1024 and any E >= 0; no padding of E.
+// Default route: the lessons of att_core.cu's design, keeping what makes
+// each form that form.
+//
+//   Scalar forms (variant_chains_kernel: scanned, analytic, chunked).
+//   * A thread owns kChains outputs of its row (i, i + T, ...), so every
+//     shared load feeds kChains independent chains, which also hide the
+//     accumulation latency; a block holds several rows when a row needs few
+//     threads (four rows of 64 threads at C = 256).
+//   * theta and g are interleaved in shared memory and read 16 bytes at a
+//     time, two (theta, g) pairs a load, the same address in every lane of
+//     the row (a broadcast).
+//   * The logit is one FMA against the negated max, f = fma(p, theta_j,
+//     -m), then one multiply by log2(e) (these forms are not the exp2 form:
+//     they pay that scale on every logit) and a raw ex2.approx.ftz.f32:
+//     5 issue slots per logit with z and acc, plus a load per 8 logits.
+//   * `scanned` keeps its first pass over j, the max of the rounded
+//     products __fmul_rn(p, theta_j), over the same packed loads and
+//     chains (2 slots per logit more, and no exponential: the warps in
+//     that pass issue while the others hold the special-function pipe).
+//     That max equals `analytic`'s max(fl(p * max theta), fl(p * min
+//     theta)), one of the row's rounded products (rounding is monotone);
+//     the exponential pass is the same code with the arithmetic pinned by
+//     intrinsics (fmaf, __fmul_rn, __fadd_rn), so `analytic` equals
+//     `scanned` bit for bit.
+//   * `chunked` keeps a (z, y) pair per chunk of 128 columns per chain;
+//     each chunk's pair joins the totals in chunk order.
+//
+//   Tensor-core forms (variant_tc_kernel: mma, mma_exp2).
+//   * The weight is one FMA and a raw ex2.approx (plus the log2(e)
+//     multiply in `mma`; `mma_exp2` scales phi once per output).
+//   * B holds g_hi, g_lo and a column of ones in its columns 0, 1, 2
+//     (columns 3-7 zero), so two mma.sync a 16x8 tile, one with w_hi and
+//     one with w_lo, give every product w * g and both parts of z: w_hi g_hi
+//     + w_hi g_lo + w_lo g_hi + w_lo g_lo in columns 0 + 1, z in column 2.
+//     The first kernel spent three.  g is split once per row while it is
+//     staged; w costs a mask, a subtraction and a mask.  What is dropped is
+//     the truncated tails of w_lo and g_lo, about 2^-20 relative, the part
+//     from w alike in y's numerator and in z.
+//   * A warp carries kStrips strips of 16 outputs (64 rows) at once over
+//     j, so a step's theta pair and B pair, one 8-byte shared load each,
+//     feed 16 weights a thread and 8 mma.sync; the k index of a step is
+//     laid out so that a thread's two columns j, j + 1 are adjacent.
+//     Several rows share a block; a warp's first phi values are loaded
+//     while the row is staged, and the loop over j is unrolled two steps.
+//   * Per logit: 5 (mma_exp2) or 6 (mma) issue slots beside the mma and
+//     the loads.  The tensor cores are not the bound: 2 m16n8k8 products
+//     per 128 logits are 32 flop a logit.  These two forms reach about
+//     2/3 of their bound, the scalar forms 3/4 to 6/7 (PERF.md).
+//
+// The exp2 form has one kernel on both routes: its first form already
+// reads 0.6 of its bound.
+//
+// Against the plain versions the default route differs by the exact
+// product inside the FMA (the plain versions round phi * theta), the
+// rounding of f * log2(e) (or of phi * log2(e)), ex2.approx (2 ulp) and
+// the order of the sums; a few 1e-6 of max |y| at unit scale.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +121,8 @@ enum Form {
   kMmaExp2 = 5
 };
 
+enum Route { kDefault = 0, kSimple = 1 };
+
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
 
@@ -94,6 +141,33 @@ __device__ __forceinline__ void warp_max_min(float& mx, float& mn) {
     mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
   }
 }
+
+// v = hi + lo + (at most 2^-20 |v|), hi and lo exact in TF32.  The split
+// truncates (a mask on the ALU pipe) instead of rounding with
+// cvt.rna.tf32.f32: conversions share the special-function pipe with the
+// exponential, and two of them per logit made that pipe, not the FMA pipe,
+// the limit (the first version of these forms ran at half this speed).
+constexpr uint32_t kTf32Mask = 0xffffe000u;
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(v) & kTf32Mask;
+  lo = __float_as_uint(v - __uint_as_float(hi)) & kTf32Mask;
+}
+
+// d += a[16 x 8] * b[8 x 8], TF32 operands, float32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ===========================================================================
+// Route "simple": the first kernels, unchanged
+// ===========================================================================
 
 // Stages theta[e] and g[e] (and phi[e] where s_phi is not null) as float32
 // in shared memory, zero-filled from c up to `padded`, and hands every
@@ -151,7 +225,8 @@ __device__ __forceinline__ float weight(float p, float t, float m) {
 }
 
 // Scalar forms.  One block per row; blockDim.x = C rounded up to a multiple
-// of 32.  Dynamic shared memory: theta[C] then g[C], as float32.
+// of 32.  Dynamic shared memory: theta[C] then g[C], as float32.  Also the
+// exp2 form's kernel on the default route.
 template <typename T, int FORM>
 __global__ void att_variant_kernel(const T* __restrict__ phi,
                                    const T* __restrict__ theta,
@@ -218,29 +293,6 @@ __global__ void att_variant_kernel(const T* __restrict__ phi,
     }
   }
   y[base + i] = acc / z;
-}
-
-// v = hi + lo + (at most 2^-20 |v|), hi and lo exact in TF32.  The split
-// truncates (a mask on the ALU pipe) instead of rounding with
-// cvt.rna.tf32.f32: conversions share the special-function pipe with the
-// exponential, and two of them per logit made that pipe, not the FMA pipe,
-// the limit (the first version of these forms ran at half this speed).
-constexpr uint32_t kTf32Mask = 0xffffe000u;
-
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(v) & kTf32Mask;
-  lo = __float_as_uint(v - __uint_as_float(hi)) & kTf32Mask;
-}
-
-// d += a[16 x 8] * b[8 x 8], TF32 operands, float32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Tensor-core forms.  One block per row, up to 8 warps; warp w takes the
@@ -344,12 +396,8 @@ __global__ void att_variant_mma_kernel(const T* __restrict__ phi,
 }
 
 template <typename T>
-cudaError_t launch(const void* phi, const void* theta, const void* g, void* y,
-                   int e, int c, int form, cudaStream_t s) {
-  const T* p = static_cast<const T*>(phi);
-  const T* t = static_cast<const T*>(theta);
-  const T* gg = static_cast<const T*>(g);
-  float* out = static_cast<float*>(y);
+cudaError_t launch_simple(const T* p, const T* t, const T* gg, float* out,
+                          int e, int c, int form, cudaStream_t s) {
   const dim3 grid(e);
   if (form == kMma || form == kMmaExp2) {
     const int padded = (c + 15) / 16 * 16;
@@ -389,26 +437,438 @@ cudaError_t launch(const void* phi, const void* theta, const void* g, void* y,
   return cudaGetLastError();
 }
 
+// ===========================================================================
+// Default route
+// ===========================================================================
+
+constexpr int kBlockThreads = 256;   // at most; a multiple of 32
+constexpr int kMaxRowWarps = 8;      // a row has at most 256 threads
+constexpr int kChains = 4;           // outputs (independent chains) a thread
+constexpr int kStrips = 4;           // 16-row strips a tensor-core warp carries
+constexpr int kGroupRows = 16 * kStrips;
+constexpr int kTcUnroll = 2;         // steps of 8 columns unrolled together
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The row's max and min theta for every thread of the row: each warp's
+// own through shuffles, then the row's warps' through shared memory.
+// Every thread of the block calls it (it holds a __syncthreads()).
+__device__ __forceinline__ void row_max_min(float& tmax, float& tmin,
+                                            float* red_max, float* red_min,
+                                            int rib, int t, int row_warps) {
+  warp_max_min(tmax, tmin);
+  if ((t & 31) == 0) {
+    red_max[rib * kMaxRowWarps + (t >> 5)] = tmax;
+    red_min[rib * kMaxRowWarps + (t >> 5)] = tmin;
+  }
+  __syncthreads();
+  for (int w = 0; w < row_warps; ++w) {
+    tmax = fmaxf(tmax, red_max[rib * kMaxRowWarps + w]);
+    tmin = fminf(tmin, red_min[rib * kMaxRowWarps + w]);
+  }
+}
+
+// One column j of every chain: w = 2^(fma(p, theta_j, -m) * log2(e)),
+// z += w, acc += w * g_j, with the arithmetic pinned by intrinsics (no
+// contraction can make one form's pass differ from another's).
+__device__ __forceinline__ void exp_column(float t, float gv,
+                                           const float (&p)[kChains],
+                                           const float (&neg_m)[kChains],
+                                           float (&z)[kChains],
+                                           float (&acc)[kChains]) {
+#pragma unroll
+  for (int r = 0; r < kChains; ++r) {
+    const float w = ex2_approx(__fmul_rn(fmaf(p[r], t, neg_m[r]), kLog2e));
+    z[r] = __fadd_rn(z[r], w);
+    acc[r] = fmaf(w, gv, acc[r]);
+  }
+}
+
+// Columns [0, n) of packed (theta, g) pairs, in order.
+__device__ __forceinline__ void exp_pass(const float2* s_tg, int n,
+                                         const float (&p)[kChains],
+                                         const float (&neg_m)[kChains],
+                                         float (&z)[kChains],
+                                         float (&acc)[kChains]) {
+  const float4* s_pairs = reinterpret_cast<const float4*>(s_tg);
+#pragma unroll 2
+  for (int j = 0; j < (n >> 1); ++j) {
+    const float4 v = s_pairs[j];   // theta_2j, g_2j, theta_2j+1, g_2j+1
+    exp_column(v.x, v.y, p, neg_m, z, acc);
+    exp_column(v.z, v.w, p, neg_m, z, acc);
+  }
+  if (n & 1) {
+    const float2 v = s_tg[n - 1];
+    exp_column(v.x, v.y, p, neg_m, z, acc);
+  }
+}
+
+// Scalar forms (scanned, analytic, chunked).  A block holds
+// `rows_per_block` rows of `row_threads` threads (a multiple of 32, so no
+// warp straddles two rows); thread t of a row owns outputs t,
+// t + row_threads, ..., kChains of them.  Dynamic shared memory: per row
+// `c_pad` (theta, g) pairs (c_pad even: 16-byte rows), then the rows'
+// per-warp maxima and minima.
+template <typename T, int FORM>
+__global__ void __launch_bounds__(kBlockThreads)
+variant_chains_kernel(const T* __restrict__ phi, const T* __restrict__ theta,
+                      const T* __restrict__ g, float* __restrict__ y, int e,
+                      int c, int row_threads, int rows_per_block, int c_pad) {
+  extern __shared__ float4 smem4[];
+  float2* s_tg = reinterpret_cast<float2*>(smem4);
+  float* red_max = reinterpret_cast<float*>(s_tg + rows_per_block * c_pad);
+  float* red_min = red_max + rows_per_block * kMaxRowWarps;
+
+  const int rib = threadIdx.x / row_threads;          // row in block
+  const int t = threadIdx.x - rib * row_threads;      // thread in row
+  const long long row =
+      static_cast<long long>(blockIdx.x) * rows_per_block + rib;
+  const bool row_ok = row < e;
+  const long long base = row * c;
+  float2* s_row = s_tg + rib * c_pad;
+
+  float p[kChains];
+  float tmax = -INFINITY;
+  float tmin = INFINITY;
+#pragma unroll
+  for (int r = 0; r < kChains; ++r) {
+    const int i = t + r * row_threads;
+    p[r] = 0.f;
+    if (row_ok && i < c) {
+      const float th = to_f32(theta[base + i]);
+      s_row[i] = make_float2(th, to_f32(g[base + i]));
+      p[r] = to_f32(phi[base + i]);
+      tmax = fmaxf(tmax, th);
+      tmin = fminf(tmin, th);
+    }
+  }
+  row_max_min(tmax, tmin, red_max, red_min, rib, t, row_threads >> 5);
+  if (!row_ok || t >= c) return;
+
+  // a chain past C runs on p = 0 (weights of 1) and is not stored
+  float neg_m[kChains];
+  if (FORM == kScanned) {
+    float m[kChains];
+#pragma unroll
+    for (int r = 0; r < kChains; ++r) m[r] = -INFINITY;
+    const float4* s_pairs = reinterpret_cast<const float4*>(s_row);
+#pragma unroll 2
+    for (int j = 0; j < (c >> 1); ++j) {
+      const float4 v = s_pairs[j];
+#pragma unroll
+      for (int r = 0; r < kChains; ++r) {
+        m[r] = fmaxf(m[r], __fmul_rn(p[r], v.x));
+        m[r] = fmaxf(m[r], __fmul_rn(p[r], v.z));
+      }
+    }
+    if (c & 1) {
+      const float th = s_row[c - 1].x;
+#pragma unroll
+      for (int r = 0; r < kChains; ++r) m[r] = fmaxf(m[r], __fmul_rn(p[r], th));
+    }
+#pragma unroll
+    for (int r = 0; r < kChains; ++r) neg_m[r] = -m[r];
+  } else {
+#pragma unroll
+    for (int r = 0; r < kChains; ++r) {
+      neg_m[r] = -fmaxf(__fmul_rn(p[r], tmax), __fmul_rn(p[r], tmin));
+    }
+  }
+
+  float z[kChains];
+  float acc[kChains];
+#pragma unroll
+  for (int r = 0; r < kChains; ++r) {
+    z[r] = 0.f;
+    acc[r] = 0.f;
+  }
+  if (FORM == kChunked) {
+    for (int k0 = 0; k0 < c; k0 += kChunk) {
+      float zc[kChains];
+      float yc[kChains];
+#pragma unroll
+      for (int r = 0; r < kChains; ++r) {
+        zc[r] = 0.f;
+        yc[r] = 0.f;
+      }
+      exp_pass(s_row + k0, min(kChunk, c - k0), p, neg_m, zc, yc);
+#pragma unroll
+      for (int r = 0; r < kChains; ++r) {
+        z[r] = __fadd_rn(z[r], zc[r]);
+        acc[r] = __fadd_rn(acc[r], yc[r]);
+      }
+    }
+  } else {
+    exp_pass(s_row, c, p, neg_m, z, acc);
+  }
+#pragma unroll
+  for (int r = 0; r < kChains; ++r) {
+    const int i = t + r * row_threads;
+    if (i < c) y[base + i] = acc[r] / z[r];
+  }
+}
+
+// One step of 8 columns j0 .. j0 + 7 for the kStrips strips of a warp.  The
+// step's k index maps to j so that a thread's two columns are adjacent:
+// k = tig is j = j0 + 2 tig, k = tig + 4 is j0 + 2 tig + 1 (A and B agree,
+// so the product is the same).  TAIL: columns at or beyond c carry no
+// weight (their theta is the zero fill, whose weight need not be finite).
+template <bool EXP2, bool TAIL>
+__device__ __forceinline__ void tc_step(
+    int j0, int c, int tig, const float* s_theta, const float* s_bcol,
+    bool b_from_smem, float2 b_const, const float (&pv)[kStrips][2],
+    const float (&neg_m)[kStrips][2], float (&big)[kStrips][4],
+    float (&small)[kStrips][4]) {
+  const int ja = j0 + 2 * tig;
+  const float2 th = *reinterpret_cast<const float2*>(s_theta + ja);
+  const float2 bv =
+      b_from_smem ? *reinterpret_cast<const float2*>(s_bcol + ja) : b_const;
+  const uint32_t b0 = __float_as_uint(bv.x);
+  const uint32_t b1 = __float_as_uint(bv.y);
+#pragma unroll
+  for (int s = 0; s < kStrips; ++s) {
+    float w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      // a0 (row gid, j), a1 (row gid + 8, j), a2, a3 the same at j + 1
+      const float t = q < 2 ? th.x : th.y;
+      const float f = fmaf(pv[s][q & 1], t, neg_m[s][q & 1]);
+      w[q] = ex2_approx(EXP2 ? f : __fmul_rn(f, kLog2e));
+    }
+    if (TAIL) {
+      if (ja >= c) w[0] = w[1] = 0.f;
+      if (ja + 1 >= c) w[2] = w[3] = 0.f;
+    }
+    uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) split_tf32(w[q], a_hi[q], a_lo[q]);
+    mma_tf32(big[s], a_hi, b0, b1);
+    mma_tf32(small[s], a_lo, b0, b1);
+  }
+}
+
+// Tensor-core forms (mma, mma_exp2).  A block holds `rows_per_block` rows
+// of `row_warps` warps; warp w of a row takes the groups of kStrips strips
+// (64 outputs) w, w + row_warps, ...  Dynamic shared memory: per row theta
+// (c_pad8 floats, zero-filled), then the B columns g_hi and g_lo
+// (`b_stride` floats each, b_stride = 8 mod 32 so that the two columns'
+// lanes hit different banks), then the rows' per-warp maxima and minima.
+// B's column 2 (ones) and columns 3-7 (zeros) are registers.
+//
+// Fragment layout of m16n8k8 (gid = lane / 4, tig = lane % 4) as in the
+// simple route's kernel above; D's column 0 + 1 is y's numerator (w g_hi
+// and w g_lo), column 2 is z: the threads with tig == 0 hold the first, the
+// threads with tig == 1 the second.
+// phi of the 2 * kStrips outputs a thread of group `grp` holds (rows gid
+// and gid + 8 of each strip); 0 at or beyond c.
+template <typename T>
+__device__ __forceinline__ void load_group_phi(const T* __restrict__ phi,
+                                               long long base, int c, int grp,
+                                               int gid,
+                                               float (&pv)[kStrips][2]) {
+#pragma unroll
+  for (int s = 0; s < kStrips; ++s) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = grp * kGroupRows + s * 16 + h * 8 + gid;
+      pv[s][h] = r < c ? to_f32(phi[base + r]) : 0.f;
+    }
+  }
+}
+
+template <typename T, bool EXP2>
+__global__ void __launch_bounds__(kBlockThreads)
+variant_tc_kernel(const T* __restrict__ phi, const T* __restrict__ theta,
+                  const T* __restrict__ g, float* __restrict__ y, int e, int c,
+                  int row_warps, int rows_per_block, int c_pad8,
+                  int b_stride) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int row_floats = c_pad8 + 2 * b_stride;
+  const int row_threads = row_warps * 32;
+  const int rib = threadIdx.x / row_threads;
+  const int t = threadIdx.x - rib * row_threads;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * rows_per_block + rib;
+  const bool row_ok = row < e;
+  const long long base = row * c;
+  float* s_theta = smem + rib * row_floats;
+  float* s_g_hi = s_theta + c_pad8;
+  float* s_g_lo = s_g_hi + b_stride;
+  float* red_max = smem + rows_per_block * row_floats;
+  float* red_min = red_max + rows_per_block * kMaxRowWarps;
+  const int lane = t & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+
+  // the first group's phi is in flight while the row is staged
+  float pv[kStrips][2];
+  load_group_phi<T>(phi, base, row_ok ? c : 0, t >> 5, gid, pv);
+  float tmax = -INFINITY;
+  float tmin = INFINITY;
+  for (int k = t; k < c_pad8; k += row_threads) {
+    float th = 0.f, gv = 0.f;
+    if (row_ok && k < c) {
+      th = to_f32(theta[base + k]);
+      gv = to_f32(g[base + k]);
+      tmax = fmaxf(tmax, th);
+      tmin = fminf(tmin, th);
+    }
+    uint32_t hi, lo;
+    split_tf32(gv, hi, lo);
+    s_theta[k] = th;
+    s_g_hi[k] = __uint_as_float(hi);
+    s_g_lo[k] = __uint_as_float(lo);
+  }
+  row_max_min(tmax, tmin, red_max, red_min, rib, t, row_warps);
+  if (!row_ok) return;   // the whole row's warps leave together
+
+  const bool b_from_smem = gid < 2;
+  const float* s_bcol = gid == 0 ? s_g_hi : s_g_lo;
+  const float2 b_const = gid == 2 ? make_float2(1.f, 1.f)
+                                  : make_float2(0.f, 0.f);
+  const int groups = (c + kGroupRows - 1) / kGroupRows;
+  const int full = c & ~7;
+
+  for (int grp = t >> 5; grp < groups; grp += row_warps) {
+    // rows at or beyond c run on phi = 0 (finite weights), never written
+    float neg_m[kStrips][2];
+#pragma unroll
+    for (int s = 0; s < kStrips; ++s) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (EXP2) pv[s][h] = __fmul_rn(pv[s][h], kLog2e);
+        neg_m[s][h] = -fmaxf(__fmul_rn(pv[s][h], tmax),
+                             __fmul_rn(pv[s][h], tmin));
+      }
+    }
+    float big[kStrips][4];
+    float small[kStrips][4];
+#pragma unroll
+    for (int s = 0; s < kStrips; ++s) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) big[s][q] = small[s][q] = 0.f;
+    }
+#pragma unroll kTcUnroll
+    for (int j0 = 0; j0 < full; j0 += 8) {
+      tc_step<EXP2, false>(j0, c, tig, s_theta, s_bcol, b_from_smem, b_const,
+                           pv, neg_m, big, small);
+    }
+    if (full < c) {
+      tc_step<EXP2, true>(full, c, tig, s_theta, s_bcol, b_from_smem,
+                          b_const, pv, neg_m, big, small);
+    }
+#pragma unroll
+    for (int s = 0; s < kStrips; ++s) {
+      // tig 0: columns 0, 1 (the numerator); tig 1: columns 2, 3 (z, 0)
+      const float c0 = big[s][0] + small[s][0];
+      const float c2 = big[s][2] + small[s][2];
+      const float num0 = c0 + (big[s][1] + small[s][1]);
+      const float num1 = c2 + (big[s][3] + small[s][3]);
+      const float z0 = __shfl_down_sync(0xffffffffu, c0, 1);
+      const float z1 = __shfl_down_sync(0xffffffffu, c2, 1);
+      const int r0 = grp * kGroupRows + s * 16 + gid;
+      if (tig == 0) {
+        if (r0 < c) y[base + r0] = num0 / z0;
+        if (r0 + 8 < c) y[base + r0 + 8] = num1 / z1;
+      }
+    }
+    load_group_phi<T>(phi, base, c, grp + row_warps, gid, pv);
+  }
+}
+
+template <typename T>
+cudaError_t launch_default(const T* p, const T* t, const T* gg, float* out,
+                           int e, int c, int form, cudaStream_t s) {
+  if (form == kExp2) return launch_simple<T>(p, t, gg, out, e, c, form, s);
+  if (form == kMma || form == kMmaExp2) {
+    const int groups = (c + kGroupRows - 1) / kGroupRows;
+    const int row_warps = groups < kMaxRowWarps ? groups : kMaxRowWarps;
+    const int rows_per_block = kMaxRowWarps / row_warps;
+    const int c_pad8 = (c + 7) & ~7;
+    const int b_stride = (c_pad8 - 8 + 31) / 32 * 32 + 8;
+    const dim3 grid((e + rows_per_block - 1) / rows_per_block);
+    const dim3 block(rows_per_block * row_warps * 32);
+    const size_t smem =
+        static_cast<size_t>(rows_per_block) *
+        ((c_pad8 + 2 * b_stride) * sizeof(float) +
+         2 * kMaxRowWarps * sizeof(float));
+    if (form == kMma) {
+      variant_tc_kernel<T, false><<<grid, block, smem, s>>>(
+          p, t, gg, out, e, c, row_warps, rows_per_block, c_pad8, b_stride);
+    } else {
+      variant_tc_kernel<T, true><<<grid, block, smem, s>>>(
+          p, t, gg, out, e, c, row_warps, rows_per_block, c_pad8, b_stride);
+    }
+    return cudaGetLastError();
+  }
+  const int per_thread = (c + kChains - 1) / kChains;
+  const int row_threads = (per_thread + 31) / 32 * 32;
+  if (row_threads > kBlockThreads) return cudaErrorInvalidValue;
+  const int rows_per_block = kBlockThreads / row_threads;
+  const int c_pad = (c + 1) & ~1;
+  const dim3 grid((e + rows_per_block - 1) / rows_per_block);
+  const dim3 block(rows_per_block * row_threads);
+  const size_t smem =
+      static_cast<size_t>(rows_per_block) *
+      (c_pad * sizeof(float2) + 2 * kMaxRowWarps * sizeof(float));
+  switch (form) {
+    case kScanned:
+      variant_chains_kernel<T, kScanned><<<grid, block, smem, s>>>(
+          p, t, gg, out, e, c, row_threads, rows_per_block, c_pad);
+      break;
+    case kAnalytic:
+      variant_chains_kernel<T, kAnalytic><<<grid, block, smem, s>>>(
+          p, t, gg, out, e, c, row_threads, rows_per_block, c_pad);
+      break;
+    case kChunked:
+      variant_chains_kernel<T, kChunked><<<grid, block, smem, s>>>(
+          p, t, gg, out, e, c, row_threads, rows_per_block, c_pad);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* phi, const void* theta, const void* g, void* y,
+                   int e, int c, int form, int route, cudaStream_t s) {
+  const T* p = static_cast<const T*>(phi);
+  const T* t = static_cast<const T*>(theta);
+  const T* gg = static_cast<const T*>(g);
+  float* out = static_cast<float*>(y);
+  return route == kSimple ? launch_simple<T>(p, t, gg, out, e, c, form, s)
+                          : launch_default<T>(p, t, gg, out, e, c, form, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32 inputs, 1 = bfloat16 inputs.  form: the Form enum
-// above.  Launches on `stream`, does not synchronise, allocates nothing.
-// Returns cudaGetLastError().
+// above.  route: 0 = the default route, 1 = "simple".  Launches on
+// `stream`, does not synchronise, allocates nothing.  Returns
+// cudaGetLastError().
 int att_variants_forward(const void* phi, const void* theta, const void* g,
-                         void* y, int e, int c, int dtype, int form,
+                         void* y, int e, int c, int dtype, int form, int route,
                          void* stream) {
   if (e < 0 || c < 1 || c > 1024) return cudaErrorInvalidValue;
   if (form < kScanned || form > kMmaExp2) return cudaErrorInvalidValue;
+  if (route != kDefault && route != kSimple) return cudaErrorInvalidValue;
   if (e == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return static_cast<int>(launch<float>(phi, theta, g, y, e, c, form, s));
+    return static_cast<int>(
+        launch<float>(phi, theta, g, y, e, c, form, route, s));
   }
   if (dtype == 1) {
     return static_cast<int>(
-        launch<__nv_bfloat16>(phi, theta, g, y, e, c, form, s));
+        launch<__nv_bfloat16>(phi, theta, g, y, e, c, form, route, s));
   }
   return cudaErrorInvalidValue;
 }

@@ -22,19 +22,25 @@ package's benches, one entry function per TPU kernel:
 
 The kernels are in `csrc/att_variants.cu`; its comment says how each form
 is laid out on Hopper.  The TPU's `block_e` tiling and its padding of E are
-not carried over.  The port's benches (`benchmarks/bench_att_variants.py`,
-`bench_att_variants2.py`, `bench_att_exp2.py`) time every form in turns
-with the production kernel.  That kernel was `v1`'s arithmetic, bit for
-bit, until it was redesigned around what these probes showed (exp2 domain,
-one FMA per logit, raw `ex2.approx`, several chains a thread); `v1` is now
-the record of that earlier form and the parent to time against, and the
-production kernel agrees with every form here to 1e-5 of max |y|, not bit
-for bit.
+not carried over.  Every entry function takes `route`: None, the default
+route (the scalar forms and the tensor-core forms redesigned around what
+the production kernel's redesign taught: several chains a thread, packed
+broadcast loads, one FMA per logit and a raw `ex2.approx`; two `mma.sync`
+a tile where the first kernels spent three), or "simple", the first
+kernels of these forms, kept unchanged as the yardstick each redesigned
+form is timed against.  `v1_exp2` and `exp2_core` run their first kernel
+on both routes.  `v1` equals `base` bit for bit on each route.  The
+port's benches (`benchmarks/bench_att_variants.py`,
+`bench_att_variants2.py`, `bench_att_exp2.py`) time the default route in
+turns with the production kernel, which agrees with every form here to
+1e-5 of max |y|, not bit for bit (its logit is one FMA in the exp2
+domain).
 
 Each entry function decides by the tensors' device: CPU tensors take the
 form's plain version (`PLAIN[form]`, written with the body's own
-arithmetic); CUDA tensors launch the kernel or raise.  `LAUNCHES` counts
-kernel launches per entry and form.
+arithmetic) whatever the route; CUDA tensors launch the route's kernel or
+raise.  `LAUNCHES` counts kernel launches per entry and form, whatever the
+route; `ROUTE_LAUNCHES` counts them per route.
 """
 
 from __future__ import annotations
@@ -56,19 +62,42 @@ VARIANT_FORMS = {"v1_exp2": 3, "v2_mxu": 4, "v3_exp2_mxu": 5}
 RESTRUCTURED_FORMS = {"base": 0, "v1": 1, "v2": 2}
 EXP2_FORM = 3
 
+# route name -> the kernel's route code; None asks for the default route
+ROUTES = {None: 0, "simple": 1}
+
+# the form codes whose default route is a redesigned kernel; the exp2 form
+# runs its first kernel on both routes.  Their default route keeps the
+# exact product phi * theta inside an FMA, where the plain versions and
+# route "simple" round it to float32.
+REDESIGNED_FORMS = frozenset({0, 1, 2, 4, 5})
+
+# route -> form code -> the __global__ kernel of csrc/att_variants.cu that
+# runs it (a profiler's span of a launch carries that name)
+KERNEL_NAMES = {
+    None: {0: "variant_chains_kernel", 1: "variant_chains_kernel",
+           2: "variant_chains_kernel", 3: "att_variant_kernel",
+           4: "variant_tc_kernel", 5: "variant_tc_kernel"},
+    "simple": {0: "att_variant_kernel", 1: "att_variant_kernel",
+               2: "att_variant_kernel", 3: "att_variant_kernel",
+               4: "att_variant_mma_kernel", 5: "att_variant_mma_kernel"},
+}
+
 # Kernel launches so far in this process, by "<entry>/<form>" (and plain
-# "exp2_core").  A run can zero them (`reset_launches`), drive a path and
-# read them to show that the path went through the kernels.
+# "exp2_core") whatever the route, and by route ("default" for None).  A
+# run can zero them (`reset_launches`), drive a path and read them to show
+# that the path went through the kernels.
 LAUNCHES: dict[str, int] = {
     **{f"variant_core/{n}": 0 for n in VARIANT_FORMS},
     **{f"restructured_core/{n}": 0 for n in RESTRUCTURED_FORMS},
     "exp2_core": 0,
 }
+ROUTE_LAUNCHES: dict[str, int] = {"default": 0, "simple": 0}
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -169,17 +198,21 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("att_variants")
     if lib.att_variants_forward.argtypes is None:
         lib.att_variants_forward.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int] * 4 + [ctypes.c_void_p]
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.att_variants_forward.restype = ctypes.c_int
         lib.att_variants_error_string.argtypes = [ctypes.c_int]
         lib.att_variants_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _run(key: str, form: int, phi, theta, g) -> torch.Tensor:
-    """CPU tensors: the form's plain version.  CUDA tensors: the kernel,
-    launched on the current stream and counted under `key`; anything it
-    cannot take raises."""
+def _run(key: str, form: int, route: str | None, phi, theta,
+         g) -> torch.Tensor:
+    """CPU tensors: the form's plain version, whatever the route.  CUDA
+    tensors: the route's kernel, launched on the current stream and
+    counted under `key` and the route; anything it cannot take raises."""
+    if route not in ROUTES:
+        raise ValueError(f"{key}: unknown route {route!r}; expected None "
+                         "(the default route) or 'simple'")
     if phi.device.type == "cpu":
         return PLAIN[form](phi, theta, g)
     _check_kernel_inputs(phi, theta, g, what=key)
@@ -197,12 +230,13 @@ def _run(key: str, form: int, phi, theta, g) -> torch.Tensor:
         stream = torch.cuda.current_stream(phi.device).cuda_stream
         err = lib.att_variants_forward(
             phi.data_ptr(), theta.data_ptr(), g.data_ptr(), y.data_ptr(), e,
-            c, _DTYPE_CODE[phi.dtype], form, stream)
+            c, _DTYPE_CODE[phi.dtype], form, ROUTES[route], stream)
     if err != 0:
         msg = lib.att_variants_error_string(err).decode()
-        raise RuntimeError(f"att_variants launch failed ({key}): {msg} "
-                           f"(error {err})")
+        raise RuntimeError(f"att_variants launch failed ({key}, route "
+                           f"{route!r}): {msg} (error {err})")
     LAUNCHES[key] += 1
+    ROUTE_LAUNCHES[route or "default"] += 1
     return y
 
 
@@ -214,27 +248,31 @@ def _form(forms: dict, name: str, entry: str) -> int:
 
 
 def variant_core(name: str, phi: torch.Tensor, theta: torch.Tensor,
-                 g: torch.Tensor) -> torch.Tensor:
+                 g: torch.Tensor, route: str | None = None) -> torch.Tensor:
     """phi, theta, g: [E, C] -> float32 [E, C], by form `name`
-    (`v1_exp2`, `v2_mxu`, `v3_exp2_mxu`)."""
+    (`v1_exp2`, `v2_mxu`, `v3_exp2_mxu`) on `route` (None: the default
+    route; "simple": the first kernels)."""
     form = _form(VARIANT_FORMS, name, "variant_core")
-    return _run(f"variant_core/{name}", form, phi, theta, g)
+    return _run(f"variant_core/{name}", form, route, phi, theta, g)
 
 
 def restructured_core(name: str, phi: torch.Tensor, theta: torch.Tensor,
-                      g: torch.Tensor) -> torch.Tensor:
+                      g: torch.Tensor, route: str | None = None
+                      ) -> torch.Tensor:
     """phi, theta, g: [E, C] -> float32 [E, C], by form `name` (`base`,
-    `v1`, `v2`).  `v1` equals `base` bit for bit, on the CPU and on the
-    card."""
+    `v1`, `v2`) on `route` (None: the default route; "simple": the first
+    kernels).  `v1` equals `base` bit for bit, on the CPU and on the card,
+    on each route.  `restructured_core("v1", ..., route="simple")` is the
+    form the production kernel had before its redesign."""
     form = _form(RESTRUCTURED_FORMS, name, "restructured_core")
-    return _run(f"restructured_core/{name}", form, phi, theta, g)
+    return _run(f"restructured_core/{name}", form, route, phi, theta, g)
 
 
-def exp2_core(phi: torch.Tensor, theta: torch.Tensor,
-              g: torch.Tensor) -> torch.Tensor:
+def exp2_core(phi: torch.Tensor, theta: torch.Tensor, g: torch.Tensor,
+              route: str | None = None) -> torch.Tensor:
     """phi, theta, g: [E, C] -> float32 [E, C] with exp2 and the hoisted
-    log2(e) scale."""
-    return _run("exp2_core", EXP2_FORM, phi, theta, g)
+    log2(e) scale; one kernel on both routes."""
+    return _run("exp2_core", EXP2_FORM, route, phi, theta, g)
 
 
 # ---------------------------------------------------------------------------
@@ -256,9 +294,10 @@ def core_work(e: int, c: int, in_itemsize: int, form: int | None) -> dict:
     `exp2`, so the exp2 forms have the production kernel's bound: what
     they save is inside `expf`, which the bound does not see.  The
     tensor-core forms move the 3 operations of the two sums onto the
-    tensor cores as 3 TF32 products over the 2 useful columns (12
-    operations per logit at the TF32 rate; the 6 padding columns are not
-    counted)."""
+    tensor cores: 12 TF32 operations per logit (the first kernel's 3
+    products over 2 useful columns, the default route's 2 over 3; the
+    padding columns are not counted).  The bound is the function's, the
+    same on both routes."""
     logits = e * c * c
     mma = form in (4, 5)
     fp32 = 5 + (2 if form == 0 else 0) - (3 if mma else 0)

@@ -1,8 +1,9 @@
 """The restructured attention-core forms (relpose_gnn_tpu_torch/ops/
 att_variants.py) against the Pallas bodies they replace, run in interpret
-mode, and against the port's own core; plus the CUDA kernels against their
-plain versions where a card is present, and the bench entry points on the
-CPU.
+mode, and against the port's own core, and the bench entry points on the
+CPU.  The CUDA kernels' cases on the card, and the routes of the wrapper,
+are in tests/test_torch_att_variants_cuda.py, which imports nothing of JAX
+so that the card's machine can collect it.
 
 Tolerance 1e-5 relative to max |y|, the bar the JAX benches set.  Measured
 on the CPU: every plain form is within 1.1e-6 of `attention_core_plain`
@@ -246,55 +247,3 @@ def test_benches_refuse_to_run_without_a_card():
                   bench_att_exp2):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             bench.main(["--e", "8", "--c", "16"])
-
-
-# ---------------------------------------------------------------------------
-# the kernels, on a card
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("e,c", [(72, 40), (72, 130), (64, 256), (4096, 256),
-                                 (0, 256), (3, 1000), (5, 1)])
-@pytest.mark.parametrize("key", FORM_KEYS)
-def test_kernel_matches_plain_on_cuda(cuda_device, key, dtype, e, c):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    args = [(torch.randn(e, c, generator=gen, device=cuda_device) * 1.5
-             ).to(dtype) for _ in range(3)]
-    before = att_variants.LAUNCHES[key]
-    fn = _all_forms()[key]
-    got = fn(*args)
-    torch.cuda.synchronize()
-    assert att_variants.LAUNCHES[key] == before + (1 if e else 0)
-    if e:
-        cpu = [a.cpu() for a in args]
-        assert _rel(got.cpu(), fn(*cpu)) < REL_TOL
-        assert _rel(got, att_core.attention_core(*args)) < REL_TOL
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("e,c", [(64, 256), (72, 130), (4096, 256)])
-def test_kernel_v1_equals_base_bitwise_on_cuda(cuda_device, e, c):
-    gen = torch.Generator(device=cuda_device).manual_seed(1)
-    args = [torch.randn(e, c, generator=gen, device=cuda_device) * 3
-            for _ in range(3)]
-    base = att_variants.restructured_core("base", *args)
-    assert torch.equal(att_variants.restructured_core("v1", *args), base)
-    # the production kernel builds its logits with one FMA in the exp2
-    # domain: close to `base`, no longer bit for bit
-    assert _rel(att_core.attention_core(*args), base) < REL_TOL
-
-
-@pytest.mark.gpu
-def test_kernels_refuse_grad(cuda_device):
-    a = torch.randn(8, 16, device=cuda_device, requires_grad=True)
-    with pytest.raises(RuntimeError, match="inference-only"):
-        att_variants.exp2_core(a, a, a)
