@@ -70,8 +70,20 @@ def pose_model(device: torch.device, name: str = "R3",
     """The serving form of a preset: seeded weights, compact edges; a
     ResNet backbone with random BatchNorm statistics, BN folded (a ViT has
     none)."""
-    cfg = RelPoseGNNConfig.preset(name, dtype=dtype, compact_edges=True,
-                                  **overrides)
+    model = unfolded_pose_model(device, name, dtype, seed,
+                                compact_edges=True, **overrides)
+    if model.cfg.backbone == "vit":
+        return model
+    _, folded = fold_relpose_backbone(model)
+    return folded
+
+
+def unfolded_pose_model(device: torch.device, name: str = "R3",
+                        dtype: torch.dtype | None = torch.bfloat16,
+                        seed: int = 0, **overrides) -> RelPoseGNN:
+    """A preset with seeded weights before the fold: a ResNet backbone's
+    BatchNorm statistics random (a ViT has none)."""
+    cfg = RelPoseGNNConfig.preset(name, dtype=dtype, **overrides)
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.device(device):
         model = RelPoseGNN(cfg).eval()
@@ -83,8 +95,7 @@ def pose_model(device: torch.device, name: str = "R3",
             if isinstance(m, torch.nn.BatchNorm2d):
                 m.running_mean.uniform_(-0.1, 0.1, generator=gen)
                 m.running_var.uniform_(0.8, 1.2, generator=gen)
-    _, folded = fold_relpose_backbone(model)
-    return folded
+    return model
 
 
 def netvlad_encoder(device: torch.device, num_clusters: int = 64,

@@ -89,16 +89,43 @@ def test_unknown_route_raises(entry):
         ENTRIES[entry](a, a, a, route="default")
 
 
+# forms whose plain version sums through a batched GEMM (`_mxu_plain`):
+# MKL's CPU GEMM does not promise the same bits from one call to the next
+# (its kernel and blocking are chosen at run time), so two calls of such a
+# plain version may differ in the last bit
+GEMM_FORMS = {att_variants.VARIANT_FORMS["v2_mxu"],
+              att_variants.VARIANT_FORMS["v3_exp2_mxu"]}
+
+
 @pytest.mark.parametrize("route", ROUTES)
-def test_cpu_tensors_take_plain_on_every_route(route):
-    """On the CPU every form on either route is its plain version, bit for
-    bit, and counts no launch in either count."""
+def test_cpu_tensors_take_plain_on_every_route(route, monkeypatch):
+    """On the CPU every form on either route calls its plain version once,
+    on the tensors it was given, and returns that call's result unchanged;
+    a form whose plain version has no GEMM also equals a second call of
+    it bit for bit.  No launch is counted in either count."""
     launches = dict(att_variants.LAUNCHES)
     by_route = dict(att_variants.ROUTE_LAUNCHES)
     args = _inputs(6, 20, "cpu", seed=1)
+    plain = dict(att_variants.PLAIN)
+    calls = []
+
+    def spy(form):
+        def call(*a):
+            out = plain[form](*a)
+            calls.append((form, a, out))
+            return out
+        return call
+
+    for form in plain:
+        monkeypatch.setitem(att_variants.PLAIN, form, spy(form))
     for fn, form in _all_forms().values():
-        assert torch.equal(fn(*args, route=route),
-                           att_variants.PLAIN[form](*args))
+        calls.clear()
+        got = fn(*args, route=route)
+        assert len(calls) == 1 and calls[0][0] == form
+        assert all(a is b for a, b in zip(calls[0][1], args))
+        assert got is calls[0][2]
+        if form not in GEMM_FORMS:
+            assert torch.equal(got, plain[form](*args))
     assert att_variants.LAUNCHES == launches
     assert att_variants.ROUTE_LAUNCHES == by_route
 

@@ -230,7 +230,7 @@ def test_port_and_chip_smoke_never_import_jax():
         "import relpose_gnn_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    pkg.__path__, pkg.__name__ + '.')]\n"
-        "assert len(names) >= 55, names\n"
+        "assert len(names) >= 62, names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
@@ -283,7 +283,12 @@ def test_port_and_chip_smoke_never_import_jax():
         "             'retrieval.vlad', 'cli.build_vlad_index',\n"
         "             'cli.vlad_export', 'config', 'utils.seeding',\n"
         "             'utils.profiling', 'utils.visualize',\n"
-        "             'data.sequences', 'cli.scenes2seq'):\n"
+        "             'data.sequences', 'cli.scenes2seq',\n"
+        "             'benchmarks.bench_backbone_stages',\n"
+        "             'benchmarks.bench_bisect', 'benchmarks.bench_s2d',\n"
+        "             'benchmarks.bench_stem_s2d2',\n"
+        "             'benchmarks.probe_eval', 'benchmarks.campaign',\n"
+        "             'benchmarks.regate_shared_trunk'):\n"
         "    assert 'relpose_gnn_tpu_torch.' + tail in sys.modules, tail\n"
         "print('clean')\n")])
     assert proc.returncode == 0, proc.stderr
