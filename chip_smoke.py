@@ -52,7 +52,16 @@ is no CPU fallback: without CUDA it exits 1 at once.
             frames, both legs), `bench_service_bisect` and
             `bench_retrieval_stages` (batch 128, 2048 rows: every stage
             time positive, every share of the peak under 1) and
-            `bench_eval`; `mfu` must read under 1.  After the train
+            `bench_eval` in three forms at batch 512: its defaults, with
+            both baseline legs (the reference program, unfolded, at
+            batch 1: a host read a query, and a chain of 203 replays of
+            its CUDA graph whose accumulator must equal 200 x the eager
+            step's sum), `vs_baseline` over 1, the chain `cuda_graph`;
+            then `--s2d` and `--no-compact` without the baseline; in
+            each the self-check against the reference program, `mfu`
+            (kernel #1's 3·E·C² a call included) under 1, the record's
+            launch count (a replay as the 2 launches it captured)
+            against the counter.  After the train
             phase, `bench_train` at batches 8 and 16 (R3 bf16 train step:
             ms, graphs/s, mfu under 1, peak memory, 2 attention launches
             a step)
@@ -153,8 +162,9 @@ is no CPU fallback: without CUDA it exits 1 at once.
             batch kernel vs plain core (SLICE_TOL); `cli.train --backbone
             vit` one epoch (64 steps + eval, a checkpoint) and `cli.test
             --backbone vit` on it, losses finite, launches 2 x (64 + 16)
-            and 2 x 16; `bench_eval --model-name R3-vit | R3-32` (q/s,
-            mfu under 1) and `bench_train --model-name R3-vit` at batch 8;
+            and 2 x 16; `bench_eval --model-name R3-vit | R3-32` (batch
+            128, no baseline; q/s, mfu under 1) and `bench_train
+            --model-name R3-vit` at batch 8;
             `load_vit_weights` from a seeded timm-layout state dict with a
             14x14 table resized to 16x21 (`encoder.fc` kept, every other
             encoder tensor changed); R3-32 one float32 cached-eval batch
@@ -1658,10 +1668,13 @@ def exercise_multiscene(dev, model: RelPoseGNN, netvlad, sizes: ServiceSizes,
     return ms, queries, total_launches
 
 
-def run_service_benches() -> None:
+def run_service_benches() -> dict:
     """Drives `bench_service` (synthetic tables of the deployment's size,
     both legs), `bench_service_bisect`, `bench_retrieval_stages` and
-    `bench_eval` through their `main`, in process."""
+    `bench_eval` through their `main`, in process: `bench_eval` at its
+    defaults (batch 512, both baseline legs, the CUDA-graph chain), then
+    with `--s2d` and with `--no-compact` (batch 512, no baseline).
+    Returns kernel #1's launches by `bench_eval` form."""
     out = bench_service.main(["--synth-db", "--db", "2048", "--iters",
                               str(ITERS)])
     torch.cuda.synchronize()
@@ -1701,14 +1714,54 @@ def run_service_benches() -> None:
           + ", ".join(f"{k} {row['ms']} ms ({row['gflop']} GFLOP, "
                       f"{row['bf16_peak_share']} of bf16 peak)"
                       for k, row in rows.items()))
-    out = bench_eval.main(["--iters", str(ITERS)])
-    torch.cuda.synchronize()
-    check(out["mfu"] is not None and 0.0 < out["mfu"] < 1.0
-          and out["value"] > 0, f"bench_eval: {out}")
-    phase("bench", f"bench_eval.main batch {out['batch']}: {out['value']} "
-          f"q/s ({out['step_ms']} ms), mfu {out['mfu']} "
-          f"({out['step_gflops']} GFLOP per step), peak memory "
-          f"{out['peak_memory_gib']} GiB")
+    launches, qps = {}, {}
+    for form in ([], ["--s2d", "--skip-baseline"],
+                 ["--no-compact", "--skip-baseline"]):
+        label = " ".join(["bench bench_eval", *form[:1]])
+        att_core.LAUNCHES = 0
+        out = bench_eval.main(form)
+        torch.cuda.synchronize()
+        replays = out["baseline_replays"] or 0
+        # a replay runs the launches its capture recorded (2: the GNN's
+        # two passes); the capture itself launched nothing
+        captured = 2 if out["baseline_chain"] == "cuda_graph" else 0
+        check(out["attention_launches"] == att_core.LAUNCHES - captured
+              + captured * replays and att_core.LAUNCHES > 0,
+              f"{label}: {att_core.LAUNCHES} launches counted, record "
+              f"{out['attention_launches']}")
+        check(out["mfu"] is not None and 0.0 < out["mfu"] < 1.0
+              and out["value"] > 0 and out["batch"] == 512
+              and out["s2d"] == ("--s2d" in form)
+              and out["compact"] == ("--no-compact" not in form)
+              and out["attention_gflops"] > 0, f"{label}: {out}")
+        launches[label] = out["attention_launches"]
+        qps[label] = out["value"]
+        phase("bench", f"bench_eval.main {' '.join(form) or '(defaults)'} "
+              f"batch {out['batch']}: {out['value']} q/s "
+              f"({out['step_ms']} ms), mfu {out['mfu']} "
+              f"({out['step_gflops']} GFLOP per step, of which attention "
+              f"{out['attention_gflops']}), peak memory "
+              f"{out['peak_memory_gib']} GiB, self-check "
+              f"{out['self_check_max_err']} (same anchor "
+              f"{out['self_check_same_anchor']}), attention launches "
+              f"{out['attention_launches']}")
+        if form:
+            continue
+        rates = (out["baseline_qps_device"], out["baseline_qps_host_sync"])
+        check(out["baseline_chain"] == "cuda_graph"
+              and all(r is not None and 0.0 < r < float("inf")
+                      for r in rates)
+              and out["vs_baseline"] > 1.0, f"bench_eval baseline: {out}")
+        phase("bench", f"bench_eval baseline (reference program, batch 1, "
+              f"unfolded, dense GNN): CUDA-graph chain of "
+              f"{replays} replays {out['baseline_qps_device']} q/s "
+              f"(accumulator held), host sync a query "
+              f"{out['baseline_qps_host_sync']} q/s; vs_baseline "
+              f"{out['vs_baseline']}, vs_baseline_host_sync "
+              f"{out['vs_baseline_host_sync']}")
+    phase("bench", "bench_eval q/s at batch 512: "
+          + ", ".join(f"{k} {v}" for k, v in qps.items()))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2665,7 +2718,8 @@ def zoo_benches(card: str) -> tuple:
     launches, records = {}, {}
     for name in ("R3-vit", "R3-32"):
         att_core.LAUNCHES = 0
-        out = bench_eval.main(["--model-name", name, "--iters", str(ITERS)])
+        out = bench_eval.main(["--model-name", name, "--iters", str(ITERS),
+                               "--batch-size", "128", "--skip-baseline"])
         torch.cuda.synchronize()
         launches[f"zoo bench_eval {name}"] = att_core.LAUNCHES
         check(out["mfu"] is not None and 0.0 < out["mfu"] < 1.0
@@ -4999,7 +5053,7 @@ def main() -> int:
         multi, multi_queries, launches = exercise_multiscene(
             dev, model, netvlad, sizes, tmp)
         att_launches["multi-scene service"] = launches
-    run_service_benches()
+    att_launches.update(run_service_benches())
     with tempfile.TemporaryDirectory() as tmp:
         att_launches["train"] = run_train(dev, tmp)
     att_launches["bench_train"] = run_bench_train()

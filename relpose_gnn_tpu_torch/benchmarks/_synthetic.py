@@ -11,6 +11,8 @@ tiny size; the defaults are the full ones.
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -67,15 +69,32 @@ def model_overrides(args) -> dict:
 def pose_model(device: torch.device, name: str = "R3",
                dtype: torch.dtype | None = torch.bfloat16, seed: int = 0,
                **overrides) -> RelPoseGNN:
-    """The serving form of a preset: seeded weights, compact edges; a
-    ResNet backbone with random BatchNorm statistics, BN folded (a ViT has
-    none)."""
-    model = unfolded_pose_model(device, name, dtype, seed,
-                                compact_edges=True, **overrides)
-    if model.cfg.backbone == "vit":
-        return model
-    _, folded = fold_relpose_backbone(model)
-    return folded
+    """The serving form (`serving_form`: BN folded, compact edges) of a
+    preset with seeded weights."""
+    return serving_form(unfolded_pose_model(device, name, dtype, seed,
+                                            **overrides))
+
+
+def serving_form(model: RelPoseGNN, s2d_stem: bool = False,
+                 compact_edges: bool = True) -> RelPoseGNN:
+    """`model` (unfolded) as it is served, with the same weights: a ResNet
+    backbone's BatchNorm folded into its convolutions (a ViT has none),
+    with `s2d_stem` the stem in its space-to-depth form, and the GNN on
+    the compact edge list unless `compact_edges` is False.  `model` itself
+    is left as it is.  A ViT with `s2d_stem` raises SystemExit (the stem
+    rewrite is a ResNet's), rather than serve the plain encoder under an
+    s2d label."""
+    if model.cfg.backbone.startswith("resnet"):
+        _, served = fold_relpose_backbone(model, s2d_stem=s2d_stem)
+    elif s2d_stem:
+        raise SystemExit(f"--s2d applies to resnet backbones only (this "
+                         f"model uses {model.cfg.backbone})")
+    else:
+        served = copy.deepcopy(model)
+    # the edge layout is a switch of the forward; the weights are the same
+    served.cfg = dataclasses.replace(served.cfg,
+                                     compact_edges=compact_edges)
+    return served
 
 
 def unfolded_pose_model(device: torch.device, name: str = "R3",

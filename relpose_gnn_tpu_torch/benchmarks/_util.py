@@ -20,8 +20,11 @@ import json
 import statistics
 import subprocess
 import time
+from unittest import mock
 
 import torch
+
+from relpose_gnn_tpu_torch.ops import att_core
 
 # NVIDIA H100 SXM data sheet, dense rates
 PEAK_BYTES = 3.35e12
@@ -116,15 +119,31 @@ def host_ms(fn, iters: int, device: torch.device) -> float:
 
 
 def count_flops(fn) -> int:
-    """Floating-point operations of one call of fn, as
-    `torch.utils.flop_counter.FlopCounterMode` counts them: matrix
-    products and convolutions (2 per multiply-add); elementwise work and
-    hand-written kernels are not seen."""
+    """Floating-point operations of one call of fn: matrix products and
+    convolutions as `torch.utils.flop_counter.FlopCounterMode` counts them
+    (2 per multiply-add), and 3·E·C² for each call of the attention core
+    (`att_core.FLOPS`, the TPU kernel's own cost estimate, which the JAX
+    package's count reads too).  FlopCounterMode cannot see into the
+    kernel; on the CPU, where the core's plain version runs instead, what
+    it sees of that version is left out, so that the count is the same on
+    either device.  Other elementwise work is not counted."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    with FlopCounterMode(display=False) as counter:
+    plain = att_core.attention_core_plain
+    unseen = 0
+
+    def plain_unseen(*args):
+        nonlocal unseen
+        before = counter.get_total_flops()
+        out = plain(*args)
+        unseen += counter.get_total_flops() - before
+        return out
+
+    tally = att_core.FLOPS
+    with FlopCounterMode(display=False) as counter, mock.patch.object(
+            att_core, "attention_core_plain", plain_unseen):
         fn()
-    return int(counter.get_total_flops())
+    return int(counter.get_total_flops() - unseen + att_core.FLOPS - tally)
 
 
 def mfu(flops: int, ms: float, device: torch.device) -> float | None:

@@ -14,11 +14,11 @@ Legs:
   device-resident  `query` on a float batch already on the card: CUDA
                    events around each step, median of `--iters` after
                    warm-up; q/s = batch / median.  `mfu` is the step's
-                   FLOPs, counted by `torch.utils.flop_counter.
-                   FlopCounterMode` over one step (matrix products and
-                   convolutions; the hand-written attention kernel and
-                   elementwise work are not counted), over the step's time
-                   and the H100's dense bf16 peak (989 TFLOP/s).
+                   FLOPs, counted by `_util.count_flops` over one step
+                   (matrix products and convolutions, and the attention
+                   kernel at 3·E·C² a call; elementwise work is not
+                   counted), over the step's time and the H100's dense
+                   bf16 peak (989 TFLOP/s).
   host uint8       what a server does with uint8 frames on the host:
                    per-batch synchronous `query` (upload, step, read back)
                    against the pipelined `query_stream` at depth 2, host

@@ -14,9 +14,9 @@ each batch of the ladder.  Weights are random from `--seed`.
 Per row: step ms (CUDA events around one step, median of `--iters` after
 two warm-up steps; with `--grad-accum k` a step is one micro-batch, k of
 them per optimizer update), graphs/s, `mfu` (the FLOPs of one train step
-as `torch.utils.flop_counter.FlopCounterMode` counts them: matrix products
-and convolutions, forward and backward; the hand-written attention kernel
-is not counted; over the step's time and 989 TFLOP/s), peak device
+by `_util.count_flops`: matrix products and convolutions, forward and
+backward, and the attention kernel's forward at 3·E·C² a call; over the
+step's time and 989 TFLOP/s), peak device
 memory, and the attention kernel's launches per step.  Prints ONE JSON
 line, {"train": [rows...], ...}.  Runs on the card unless `--device cpu`
 asks otherwise (`mfu` and memory are null there).

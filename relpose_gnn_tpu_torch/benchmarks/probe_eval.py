@@ -25,22 +25,18 @@ import sys
 import torch
 
 from relpose_gnn_tpu_torch import resolve_device
-from relpose_gnn_tpu_torch.benchmarks import _synthetic, _util
+from relpose_gnn_tpu_torch.benchmarks import _synthetic, _util, bench_eval
 from relpose_gnn_tpu_torch.models.posenet import (RelPoseGNN,
                                                   RelPoseGNNConfig,
                                                   init_weights)
 from relpose_gnn_tpu_torch.ops import att_core
-from relpose_gnn_tpu_torch.ops import graph as graph_ops
 
 
 def eval_fn(model: RelPoseGNN, images: torch.Tensor, adj: torch.Tensor,
             poses: torch.Tensor) -> torch.Tensor:
     """images [B, N, H, W, 3], adj [B, N, N], poses [B, N, 6] ->
-    the recovered query poses [B, 6]."""
-    _, pred_rel, _, aux = model(images, adj)
-    nbr = graph_ops.nearest_neighbor(aux["node_feats"], node=0)
-    rows = torch.arange(pred_rel.shape[0], device=pred_rel.device)
-    return poses[rows, nbr] - pred_rel[rows, nbr, 0]
+    the recovered query poses [B, 6] (`bench_eval.reference_program`)."""
+    return bench_eval.reference_program(model, images, adj, poses)[0]
 
 
 @torch.inference_mode()

@@ -29,6 +29,12 @@ from relpose_gnn_tpu_torch.ops import _build
 # Kernel launches so far in this process.  A run can zero it, drive the
 # main path and read it to show that the path went through the kernel.
 LAUNCHES = 0
+# Floating-point operations of the attention core so far in this process:
+# 3·E·C² a call, the TPU kernel's own cost estimate (att_pallas.py:84-87),
+# counted where `attention_core` is called, so that the count is the same
+# whichever implementation runs.  `benchmarks/_util.py::count_flops` adds
+# it, since FlopCounterMode cannot see into the kernel.
+FLOPS = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_C = 1024
@@ -127,7 +133,10 @@ def attention_core(phi: torch.Tensor, theta: torch.Tensor,
     bfloat16, contiguous, 1 <= C <= 1024): the kernel, launched on the
     current stream; anything it cannot take raises.  Differentiable:
     with grad enabled and an input that requires it, through
-    `AttentionCoreFunction` (same forward, eager backward)."""
+    `AttentionCoreFunction` (same forward, eager backward).  Adds the
+    call's 3·E·C² to `FLOPS`."""
+    global FLOPS
+    FLOPS += 3 * phi.numel() * phi.shape[-1]
     if torch.is_grad_enabled() and any(
             a.requires_grad for a in (phi, theta, g)):
         return AttentionCoreFunction.apply(phi, theta, g)

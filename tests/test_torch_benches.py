@@ -128,15 +128,34 @@ def test_bench_retrieval_stages(capsys, tmp_path, rank_dtype):
 
 
 def test_bench_eval(capsys, tmp_path):
-    rec = _run(capsys, bench_eval, [*TINY, "--batch-size", "4"], tmp_path)
+    rec = _run(capsys, bench_eval, [*TINY, "--batch-size", "4",
+                                    "--baseline-iters", "2"], tmp_path)
     assert DEVICE_KEYS | {"metric", "value", "unit", "mfu", "step_ms",
                           "step_gflops", "peak_memory_gib", "model", "batch",
-                          "dtype", "hw", "self_check_max_err"} == set(rec)
+                          "dtype", "hw", "self_check_max_err",
+                          "self_check_same_anchor", "vs_baseline",
+                          "vs_baseline_host_sync", "baseline_qps_device",
+                          "baseline_qps_host_sync", "baseline_chain",
+                          "baseline_replays", "s2d", "compact",
+                          "attention_gflops", "attention_launches"
+                          } == set(rec)
     assert rec["metric"] == "relocalization queries/sec/chip"
-    assert rec["unit"] == "queries/s" and "vs_baseline" not in rec
+    assert rec["unit"] == "queries/s"
     assert rec["value"] == pytest.approx(4 / rec["step_ms"] * 1e3)
-    assert rec["step_gflops"] > 0 and _mfu_ok(rec["mfu"])
+    assert rec["step_gflops"] > rec["attention_gflops"] > 0
+    assert _mfu_ok(rec["mfu"])
+    assert not rec["s2d"] and rec["compact"]
+    # the baseline legs: on the CPU the chain is a plain loop of 200 calls
+    assert rec["baseline_chain"] == "loop" and rec["baseline_replays"] == 200
+    assert rec["baseline_qps_device"] > 0 and rec["baseline_qps_host_sync"] > 0
+    assert rec["vs_baseline"] == pytest.approx(
+        rec["value"] / rec["baseline_qps_device"])
+    assert rec["vs_baseline_host_sync"] == pytest.approx(
+        rec["value"] / rec["baseline_qps_host_sync"])
+    assert rec["vs_baseline"] > 0 and rec["vs_baseline_host_sync"] > 0
+    assert rec["self_check_same_anchor"]
     assert rec["self_check_max_err"] < 1e-4        # float32: equal anchors
+    assert rec["attention_launches"] == 0          # the plain core
 
 
 FEED = ["--device", "cpu", "--graphs", "6", "--nodes", "3", "--height",
