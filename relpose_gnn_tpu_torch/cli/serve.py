@@ -18,8 +18,15 @@ checkpoint directory of `cli.train`; `--netvlad-checkpoint` the released
 `netvlad_vgg16.tar`.  `--trace-dir DIR` records a `torch.profiler` trace
 (CPU and CUDA activity) of the serving loop into DIR
 (`utils/profiling.py::trace`), around the loops the JAX script traces:
-the single-scene query stream and the multi-scene loop.  There is no
-compiled query program, so no compile count is printed.
+the single-scene query stream and the multi-scene loop; the service's
+spans (`relpose.service.*`, `relpose.stream.fetch`) are in it.  There is
+no compiled query program, so no compile count is printed.
+
+In stochastic mode the served-queries line ends with "window fallbacks f
+of n batches": of the n batches that took the windowed selection
+(`retrieval/subsample.py::WINDOW_CALLS`; none where the database holds no
+more frames than the window), the f whose window could not fill the graph
+and that fell back to the full sort (`WINDOW_FALLBACKS`).
 
 `--mesh-data N` serves ONE scene over N processes, one per device (the
 multi-process flags of cli/__init__.py): every process builds the same
@@ -59,6 +66,7 @@ from relpose_gnn_tpu_torch.evaluation.service import (RelocalizationService,
                                                       ServiceConfig)
 from relpose_gnn_tpu_torch.parallel.mesh import create_mesh
 from relpose_gnn_tpu_torch.parallel.multihost import process_count
+from relpose_gnn_tpu_torch.retrieval import subsample
 from relpose_gnn_tpu_torch.training import checkpoints as ckpt
 from relpose_gnn_tpu_torch.training.experiment import (ExperimentConfig,
                                                        build_model,
@@ -315,6 +323,7 @@ def _run(args):
     print(f"serving {len(q)} queries (batch {args.batch_size}, pipeline "
           f"depth {args.pipeline_depth}) ...")
     query_batches, src_indices = _make_query_batches(q, args, h, w)
+    windows = _window_counts()
     t0 = time.perf_counter()
     if mesh is None:
         with trace(args.trace_dir):
@@ -331,8 +340,22 @@ def _run(args):
     poses_out = np.concatenate(poses_out)[:len(src_indices)]
     print(f"served {len(poses_out)} queries in {t_serve:.2f}s "
           f"({len(poses_out) / max(t_serve, 1e-9):.0f} q/s incl. retrieval "
-          "AND host image decode, pipelined)")
+          "AND host image decode, pipelined)"
+          f"{_fallbacks(svc.cfg, windows)}")
     return _report_scene(args, q, poses_out, src_indices, args.out)
+
+
+def _window_counts() -> tuple[int, int]:
+    return subsample.WINDOW_CALLS, subsample.WINDOW_FALLBACKS
+
+
+def _fallbacks(cfg: ServiceConfig, before: tuple[int, int]) -> str:
+    """', window fallbacks f of n batches' since `before` (a
+    `_window_counts()`) in stochastic mode, '' in deterministic mode."""
+    if cfg.deterministic:
+        return ""
+    calls, falls = (a - b for a, b in zip(_window_counts(), before))
+    return f", window fallbacks {falls} of {calls} batches"
 
 
 def _sync(device: torch.device) -> None:
@@ -415,6 +438,7 @@ def _serve_multiscene(args, model, netvlad, h, w, rhw, sp, device):
             print(f"[{s}] serving {len(q)} queries (batch "
                   f"{args.batch_size}) ...")
             query_batches, src_indices = _make_query_batches(q, args, h, w)
+            windows = _window_counts()
             t0 = time.perf_counter()
             poses_out = [out["pose"] for out in ms.query_stream(
                 s, query_batches(), depth=args.pipeline_depth,
@@ -423,7 +447,8 @@ def _serve_multiscene(args, model, netvlad, h, w, rhw, sp, device):
             poses_out = np.concatenate(poses_out)[:len(src_indices)]
             print(f"[{s}] served {len(poses_out)} queries in "
                   f"{t_serve:.2f}s "
-                  f"({len(poses_out) / max(t_serve, 1e-9):.0f} q/s)")
+                  f"({len(poses_out) / max(t_serve, 1e-9):.0f} q/s)"
+                  f"{_fallbacks(ms.cfg, windows)}")
             out_path = (f"{args.out.rsplit('.npz', 1)[0]}_{s}.npz"
                         if args.out else None)
             results[s] = _report_scene(args, q, poses_out, src_indices,

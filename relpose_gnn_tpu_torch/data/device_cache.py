@@ -29,6 +29,7 @@ from relpose_gnn_tpu_torch import resolve_device
 from relpose_gnn_tpu_torch.data.pipeline import (batch_indices,
                                                  make_normalizer,
                                                  normalize_per_record)
+from relpose_gnn_tpu_torch.utils.profiling import span
 
 
 class DeviceCachedFeed:
@@ -51,15 +52,18 @@ class DeviceCachedFeed:
         self.nbytes = sum(int(v.nbytes) for v in host.values())
 
     def _device_batch(self, idx: np.ndarray) -> dict:
-        index = torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)
-        out = {k: torch.index_select(v, 0, index)
-               for k, v in self._tables.items()}
-        if self._per_record:
-            out["images"] = normalize_per_record(
-                out["images"], out.pop("norm_mean"), out.pop("norm_std"))
-        else:
-            out["images"] = self._normalize(out["images"])
-        return out
+        with span("feed.gather"):
+            index = torch.from_numpy(np.asarray(idx, np.int64)).to(
+                self.device)
+            out = {k: torch.index_select(v, 0, index)
+                   for k, v in self._tables.items()}
+            if self._per_record:
+                out["images"] = normalize_per_record(
+                    out["images"], out.pop("norm_mean"),
+                    out.pop("norm_std"))
+            else:
+                out["images"] = self._normalize(out["images"])
+            return out
 
     def epoch(self, seed: int, batch_size: int, shuffle: bool = True,
               drop_remainder: bool = True) -> Iterator[dict]:

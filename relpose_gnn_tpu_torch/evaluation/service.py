@@ -78,6 +78,7 @@ from relpose_gnn_tpu_torch.parallel.sharding import batch_rows
 from relpose_gnn_tpu_torch.retrieval.subsample import (
     SIM_BLOCK, fold_in, ranked_indices, similarities,
     subsample_neighbors_batch)
+from relpose_gnn_tpu_torch.utils.profiling import span
 
 _RANK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -95,7 +96,8 @@ def _pipelined_stream(query_fn: Callable, batches: Iterable, depth: int,
     inflight: deque = deque()
 
     def fetch(out):
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        with span("stream.fetch"):
+            return {k: v.cpu().numpy() for k, v in out.items()}
 
     for i, q in enumerate(batches):
         inflight.append(query_fn(q, fold_in(rng, i)))
@@ -310,7 +312,8 @@ class RelocalizationService:
         255 there (true division, see `to_float01`), so a uint8 batch
         gives bit for bit what the same batch sent as
         `q.astype(float32) / 255` gives (tested)."""
-        q = torch.as_tensor(images).to(self.device)
+        with span("service.upload"):
+            q = torch.as_tensor(images).to(self.device)
         return to_float01(q) if q.dtype == torch.uint8 else q.float()
 
     @torch.inference_mode()
@@ -646,7 +649,8 @@ class RelocalizationService:
 
     def _encode(self, query_model_in: torch.Tensor) -> torch.Tensor:
         """Query backbone embeddings [B, 1, D]."""
-        return self.model.encode_nodes(query_model_in[:, None])
+        with span("service.encode"):
+            return self.model.encode_nodes(query_model_in[:, None])
 
     def _select(self, sim: torch.Tensor, db_valid: torch.Tensor,
                 rng: int, row0: int = 0) -> torch.Tensor:
@@ -699,32 +703,44 @@ class RelocalizationService:
         # descriptor
         if cfg.retrieval == "shared-trunk":
             q_emb = self._encode(query_model_in)
-            q_desc = _unit_rows(q_emb[:, 0])
+            with span("service.descriptor"):
+                q_desc = _unit_rows(q_emb[:, 0])
         else:
             q_emb = None
-            q_desc = self.netvlad(self._netvlad_input(query01))
+            x = self._netvlad_input(query01)
+            with span("service.descriptor"):
+                q_desc = self.netvlad(x)
+        nbr_emb = None
         if self._db_axis is not None:
             # 2'. sharded tables: per-rank top-C, the candidates gathered,
             # one all-reduce for the embedding lookup
-            nbrs, nbr_emb = select_and_lookup(
-                q_desc, db_desc, db_emb, db_valid, mesh=self._mesh,
-                axis=self._db_axis, k=cfg.seq_len - 1,
-                sampling_period=cfg.sampling_period,
-                deterministic=cfg.deterministic,
-                candidates=cfg.retrieval_candidates, seed=rng)
+            with span("service.rank"):
+                nbrs, nbr_emb = select_and_lookup(
+                    q_desc, db_desc, db_emb, db_valid, mesh=self._mesh,
+                    axis=self._db_axis, k=cfg.seq_len - 1,
+                    sampling_period=cfg.sampling_period,
+                    deterministic=cfg.deterministic,
+                    candidates=cfg.retrieval_candidates, seed=rng)
         else:
-            sim = similarities(q_desc, db_desc)
+            with span("service.rank"):
+                sim = similarities(q_desc, db_desc)
             # 2. neighbor selection
-            nbrs = self._select(sim, db_valid, rng, row0)
-            nbr_emb = db_emb[nbrs]
-        # 3. graph assembly from cached embeddings, 4. GNN + pose recovery
+            with span("service.select"):
+                nbrs = self._select(sim, db_valid, rng, row0)
         if q_emb is None:
             q_emb = self._encode(query_model_in)
-        adj = torch.as_tensor(~np.eye(cfg.seq_len, dtype=bool),
-                              device=self.device).expand(
-            b, cfg.seq_len, cfg.seq_len)
-        out = anchored_pose_step(self.model, q_emb, nbr_emb, db_poses[nbrs],
-                                 adj)
+        # 3. graph assembly from cached embeddings
+        with span("service.gather"):
+            if nbr_emb is None:
+                nbr_emb = db_emb[nbrs]
+            nbr_poses = db_poses[nbrs]
+            adj = torch.as_tensor(~np.eye(cfg.seq_len, dtype=bool),
+                                  device=self.device).expand(
+                b, cfg.seq_len, cfg.seq_len)
+        # 4. GNN + pose recovery
+        with span("service.gnn"):
+            out = anchored_pose_step(self.model, q_emb, nbr_emb, nbr_poses,
+                                     adj)
         return {"pose": out["pred"], "neighbors": nbrs,
                 "anchor": out["nbr"]}
 
@@ -755,18 +771,20 @@ class RelocalizationService:
         of this service's own (the hook a multi-scene service uses).  Same
         contract as `query` otherwise.  After replicate_over, this rank
         answers its rows of the batch and gathers the others'."""
-        _check_built_hw(self._built_hw, np.shape(query_images01), "query")
-        norm = None if norm_ms is not None else model_norm
-        rng = 0 if rng is None else int(rng)
-        if self._mesh is None or self._db_axis is not None:
-            return self._query_fn(norm, db,
-                                  self._to_device01(query_images01), rng,
-                                  norm_ms)
-        rows = batch_rows(self._mesh, len(query_images01))
-        out = self._query_fn(norm, db,
-                             self._to_device01(query_images01[rows]), rng,
-                             norm_ms, row0=rows.start)
-        return {k: gather_rows(v, self._mesh) for k, v in out.items()}
+        with span("service.query"):
+            _check_built_hw(self._built_hw, np.shape(query_images01),
+                            "query")
+            norm = None if norm_ms is not None else model_norm
+            rng = 0 if rng is None else int(rng)
+            if self._mesh is None or self._db_axis is not None:
+                return self._query_fn(norm, db,
+                                      self._to_device01(query_images01),
+                                      rng, norm_ms)
+            rows = batch_rows(self._mesh, len(query_images01))
+            out = self._query_fn(norm, db,
+                                 self._to_device01(query_images01[rows]),
+                                 rng, norm_ms, row0=rows.start)
+            return {k: gather_rows(v, self._mesh) for k, v in out.items()}
 
     def query_stream(self, batches, model_norm, depth: int = 2,
                      rng: int | None = None, norm_ms=None):

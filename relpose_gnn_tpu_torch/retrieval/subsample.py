@@ -30,7 +30,11 @@ form with the exact windowed fast path.  Where it differs from the JAX one:
   drawn, so results are identical for every `candidates` value including
   None, which the JAX package gets from fixed 256-wide chunks.
 * **The window fallback** (`lax.cond(all(win_ok))`) is a host read of one
-  boolean per batch, a synchronisation point of the query step.
+  boolean per batch, a synchronisation point of the query step (span
+  `select.window_read`; the fallback's full sort is span
+  `select.full_sort`, utils/profiling.py).  `WINDOW_CALLS` and
+  `WINDOW_FALLBACKS` count the windowed batches and those that fell
+  back.
 """
 
 from __future__ import annotations
@@ -39,8 +43,15 @@ import numpy as np
 import torch
 
 from relpose_gnn_tpu_torch import require_full_fp32
+from relpose_gnn_tpu_torch.utils.profiling import span
 
 _M32 = 0xFFFFFFFF
+
+# Batches that took the windowed path so far in this process, and those
+# of them whose window could not fill k selections and fell back to the
+# full sort.  A run reads both before and after the batches it serves.
+WINDOW_CALLS = 0
+WINDOW_FALLBACKS = 0
 
 
 # The table's similarities are computed in blocks of this many rows, so
@@ -243,6 +254,7 @@ def subsample_neighbors_batch(seed: int, similarity: torch.Tensor,
     `candidates` value, None included, for the same seed.  The rows are
     rows [row0, row0 + B) of a larger batch for the draws: a batch split
     into blocks selects what the whole batch selects."""
+    global WINDOW_CALLS, WINDOW_FALLBACKS
     b, m = similarity.shape
     if candidates is not None and candidates < 1:
         raise ValueError(f"candidates must be >= 1 or None, got {candidates}")
@@ -261,10 +273,15 @@ def subsample_neighbors_batch(seed: int, similarity: torch.Tensor,
 
     if candidates is None or candidates >= m:
         return select(None)[0]
+    WINDOW_CALLS += 1
     win_idx, win_ok = select(min(m, max(int(candidates), k)))
-    if bool(win_ok.all()):          # host read: one boolean per batch
+    with span("select.window_read"):
+        filled = bool(win_ok.all())     # host read: one boolean per batch
+    if filled:
         return win_idx
-    return select(None)[0]
+    WINDOW_FALLBACKS += 1
+    with span("select.full_sort"):
+        return select(None)[0]
 
 
 def subsample_neighbors(seed: int, similarity: torch.Tensor,

@@ -57,6 +57,7 @@ from relpose_gnn_tpu_torch.parallel.mesh import DATA_AXIS, axis_group
 from relpose_gnn_tpu_torch.parallel.sharding import data_shard
 from relpose_gnn_tpu_torch.retrieval.subsample import fold_in
 from relpose_gnn_tpu_torch.training import criterion as crit
+from relpose_gnn_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -329,38 +330,46 @@ def make_train_step(cfg: TrainerConfig, mesh=None):
     all-reduced by DistributedDataParallel (module docstring); a data
     axis of one rank runs the single-device computation under it.  A
     mesh whose data axis has no process group (a `LocalMesh`: no
-    `init_process_group`) runs the single-device step as it is."""
+    `init_process_group`) runs the single-device step as it is.
+
+    A step is the span `train.step` holding `train.forward`,
+    `train.backward` and `train.optimizer` (utils/profiling.py)."""
     shard = data_shard(mesh)
     if mesh is not None and axis_group(mesh, DATA_AXIS) is None:
         mesh = None
     wrapped = {}
 
     def train_step(state: TrainState, batch: dict, seed: int) -> dict:
-        device = batch["images"].device
-        drop_gen, edge_gen = step_generators(seed, state.step, device)
-        if cfg.edge_dropout_effective:
-            adj = batch["adj"]
-            b = adj.shape[0]
-            keep = graph_ops.edge_dropout_mask(
-                edge_gen, adj.shape[-1], cfg.edge_keep_factor,
-                batch_shape=(b if shard is None else shard.size * b,)
-                + tuple(adj.shape[1:-2]))
-            if shard is not None:   # this rank's rows of the global masks
-                keep = keep[shard.rows(b)]
-            batch = dict(batch, adj=adj & graph_ops.ensure_nonempty(keep))
-        for p in state.optimizer.params:
-            p.grad = None
-        if mesh is None:
-            total, metrics = loss_fn(state, batch, drop_gen, cfg)
-        else:
-            ddp = wrapped.get(id(state))
-            if ddp is None:
-                ddp = wrapped[id(state)] = _data_parallel(state, cfg, mesh)
-            total, metrics = ddp(batch, drop_gen, shard)
-        total.backward()
-        state.optimizer.step()
-        state.step += 1
-        return metrics
+        with span("train.step"):
+            device = batch["images"].device
+            drop_gen, edge_gen = step_generators(seed, state.step, device)
+            if cfg.edge_dropout_effective:
+                adj = batch["adj"]
+                b = adj.shape[0]
+                keep = graph_ops.edge_dropout_mask(
+                    edge_gen, adj.shape[-1], cfg.edge_keep_factor,
+                    batch_shape=(b if shard is None else shard.size * b,)
+                    + tuple(adj.shape[1:-2]))
+                if shard is not None:   # this rank's rows of the global masks
+                    keep = keep[shard.rows(b)]
+                batch = dict(batch, adj=adj & graph_ops.ensure_nonempty(keep))
+            for p in state.optimizer.params:
+                p.grad = None
+            with span("train.forward"):
+                if mesh is None:
+                    total, metrics = loss_fn(state, batch, drop_gen, cfg)
+                else:
+                    ddp = wrapped.get(id(state))
+                    if ddp is None:
+                        ddp = wrapped[id(state)] = _data_parallel(state, cfg,
+                                                                  mesh)
+                    total, metrics = ddp(batch, drop_gen, shard)
+            with span("train.backward"):
+                total.backward()
+            with span("train.optimizer"):
+                state.optimizer.step()
+            state.step += 1
+            return metrics
 
     return train_step
 

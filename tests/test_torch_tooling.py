@@ -9,10 +9,13 @@ draws, the plots' PNG bytes (the same matplotlib calls), and every file
 JSON, text; the TUM quaternions printed to 6 and 9 decimals, which the
 port's float32 `mat2quat` gives bit for bit).  The serve run is the
 port's alone, at a tiny size (R3 at resnet18, dims 32, 4-node graphs,
-32x43 frames, `shared-trunk` retrieval): its trace must parse and hold
-the serving loop's operators.
+32x43 frames, `shared-trunk` retrieval, stochastic selection over a
+window of 4 candidates): its trace must parse and hold the serving loop's
+operators and the service's spans, and each served-queries line must
+count the window's fallbacks.
 """
 
+import functools
 import glob
 import json
 import os
@@ -268,7 +271,8 @@ def test_scenes2seq_cli_byte_equal(raw_scene, tmp_path):
 # -- cli.serve --trace-dir ---------------------------------------------------
 
 @pytest.mark.parametrize("scenes", [("chess",), ("chess", "fire")])
-def test_serve_writes_a_trace_on_the_cpu(tmp_path, scenes):
+def test_serve_writes_a_trace_on_the_cpu(tmp_path, scenes, monkeypatch,
+                                         capsys):
     from test_torch_cli_build_graphs import write_raw_scene
     from test_torch_cli_serve import write_pose_tar
 
@@ -278,14 +282,24 @@ def test_serve_writes_a_trace_on_the_cpu(tmp_path, scenes):
     pth = str(tmp_path / "r3.pth.tar")
     write_pose_tar(pth)
     trace = str(tmp_path / "trace")
+    # a window of 4 of the 12 database frames: 3 selections at period 5
+    # need 11 survivors, so every batch's window falls short
+    monkeypatch.setattr(port_serve, "ServiceConfig", functools.partial(
+        port_serve.ServiceConfig, retrieval_candidates=4))
     out = port_serve.main([
         "--scene", *scenes, "--data-path", raw, "--seq-len", "4",
         "--image-size", "32", "--batch-size", "3", "--backbone", "resnet18",
-        "--feat-dim", "32", "--dtype", "float32", "--deterministic",
+        "--feat-dim", "32", "--dtype", "float32",
         "--retrieval-mode", "shared-trunk", "--weights", pth,
         "--trace-dir", trace, "--device", "cpu"])
     errs = [out] if len(scenes) == 1 else [out[s] for s in scenes]
     assert all(np.isfinite(e.median_t) for e in errs)
+    # 4 queries a scene in batches of 3
+    served = [ln for ln in capsys.readouterr().out.splitlines()
+              if "served" in ln and "queries in" in ln]
+    assert len(served) == len(scenes)
+    assert all(ln.endswith(", window fallbacks 2 of 2 batches")
+               for ln in served), served
     files = glob.glob(osp.join(trace, "*.pt.trace.json"))
     assert len(files) == 1
     with open(files[0]) as f:
@@ -293,3 +307,9 @@ def test_serve_writes_a_trace_on_the_cpu(tmp_path, scenes):
     # the encoder's convolutions and the attention core's plain version
     # (the CPU's) ran inside the traced loop
     assert "aten::conv2d" in names and "aten::softmax" in names
+    # and the service's spans, the window's read and its fallback
+    assert {"relpose." + n for n in (
+        "service.query", "service.upload", "service.descriptor",
+        "service.encode", "service.rank", "service.select",
+        "service.gather", "service.gnn", "select.window_read",
+        "select.full_sort", "stream.fetch")} <= names
