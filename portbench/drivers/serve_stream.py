@@ -13,7 +13,8 @@ the pool) to `query_stream(depth)`, whose batch i draws with
 request is one batch: its time runs from when the stream pulled it to
 when its answers were on the host.  `query_throughput` counts the queries
 answered inside the window over its seconds; `request_p95_ms` is the 95th
-percentile over every request handed in the window.
+percentile over every request handed in the window.  A traced run hands
+the same percentile to the readers, for a cell that reports it per layer.
 
 Check: the reference judges a sample of the answered batches, drawn from
 the seed (check_serve.py).
@@ -27,14 +28,14 @@ import numpy as np
 import torch
 
 from portbench import check_serve, program, scenes
-from portbench.reference import params
+from portbench.reference import encoders, params
 
 
 def _inputs(run) -> check_serve.ServeInputs:
     cfg, t, dev, seed = run.config, run.traffic, run.device, run.seed
     m, r = cfg["model"], cfg.get("retrieval")
-    pose_w = params.make_weights(params.relpose_spec(m),
-                                 scenes.generator(seed, "weights", dev))
+    pose_w = params.relpose_weights(m, scenes.generator(seed, "weights",
+                                                        dev))
     netvlad_w = None
     if t["retrieval"] == "netvlad":
         netvlad_w = params.make_weights(
@@ -89,8 +90,8 @@ def run(run) -> dict:
 
     tracer = run.tracer
     tracer.hook_module(svc.netvlad, "retrieval_trunk")
-    tracer.hook_module(getattr(svc.model, "feature_extractor", None)
-                       or getattr(svc.model, "encoder", None), "encode")
+    tracer.hook_module(getattr(svc.model, encoders.find(
+        inp.m["backbone"]).MODULE, None), "encode")
     handed, done, answers = [], [], []
     setup_s = run.setup_done()
     t0 = time.perf_counter()
@@ -114,6 +115,7 @@ def run(run) -> dict:
     b = t["batch"]
     in_window = int(np.sum(done <= end))
     lat_ms = (done - handed) * 1e3
+    p95_ms = float(np.percentile(lat_ms, 95))
     failed = sum(int(np.sum(~np.isfinite(a["pose"]).all(1)))
                  for a in answers)
     del svc
@@ -127,11 +129,12 @@ def run(run) -> dict:
     return {
         "setup_s": setup_s,
         "metrics": {"query_throughput": b * in_window / run.seconds,
-                    "request_p95_ms": float(np.percentile(lat_ms, 95))},
+                    "request_p95_ms": p95_ms},
         "attempted": b * len(handed), "failed": failed,
         "numbers": numbers, "memory_peak_bytes": peak,
         "layer": {"trace": tracer.trace, "per_step": b,
                   "steps_traced": tracer.steps_recorded,
+                  "request_p95_ms": p95_ms,
                   "edges_per_batch": b * run.config["model"][
                       "num_nodes"] * run.config["model"]["knn"],
                   "att_core_in_bytes": 2 if run.config["model"][

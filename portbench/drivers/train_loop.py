@@ -45,8 +45,7 @@ class _Store:
 def _inputs(run) -> check_train.TrainInputs:
     cfg, t, dev, seed = run.config, run.traffic, run.device, run.seed
     m = cfg["model"]
-    w = params.make_weights(params.relpose_spec(m),
-                            scenes.generator(seed, "weights", dev))
+    w = params.relpose_weights(m, scenes.generator(seed, "weights", dev))
     scene = scenes.Scene(seed, m["image_hw"], t["strip_columns"], dev)
     off = scenes.graph_offsets(scene, t["graphs"], m["num_nodes"],
                                t["node_stride"], "graphs")

@@ -14,13 +14,19 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": None}
 
 
 def model_overrides(m: dict) -> dict:
-    """RelPoseGNNConfig fields of config file section `model`."""
-    return dict(backbone=m["backbone"], feat_dim=m["feat_dim"],
-                edge_dim=m["edge_dim"], node_dim=m["node_dim"],
-                num_nodes=m["num_nodes"], knn=m["knn"],
-                gnn_recursion=m["gnn_recursion"], num_gnn_layers=1,
-                dtype=_DTYPES[m["dtype"]], droprate=m["droprate"],
-                vit_image_hw=tuple(m["image_hw"]))
+    """RelPoseGNNConfig fields of config file section `model`: the common
+    ones, then those of its optional `program` section as they stand (a
+    JSON list as a tuple), so that an encoder's own fields reach the
+    program with no edit here."""
+    out = dict(backbone=m["backbone"], feat_dim=m["feat_dim"],
+               edge_dim=m["edge_dim"], node_dim=m["node_dim"],
+               num_nodes=m["num_nodes"], knn=m["knn"],
+               gnn_recursion=m["gnn_recursion"], num_gnn_layers=1,
+               dtype=_DTYPES[m["dtype"]], droprate=m["droprate"],
+               vit_image_hw=tuple(m["image_hw"]))
+    out.update({k: tuple(v) if isinstance(v, list) else v
+                for k, v in m.get("program", {}).items()})
+    return out
 
 
 def pose_model(m: dict, weights: dict, device):

@@ -10,15 +10,12 @@ edges and computes the others for nothing.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 
-from portbench.reference.params import RESNET_STAGES, VGG16_CFG
+from portbench.reference import encoders
+from portbench.reference.params import VGG16_CFG
 
-BN_EPS = 1e-5
-LN_EPS = 1e-6
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -54,89 +51,10 @@ class Precision:
         return self.q(F.conv2d(self.q(x), self.q(w), b, stride, padding))
 
 
-def _bn(x, sd, name, train):
-    """BatchNorm over NCHW: the batch's biased statistics (train) or the
-    running ones."""
-    if train:
-        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-    else:
-        mean, var = sd[name + ".running_mean"], sd[name + ".running_var"]
-    scale = sd[name + ".weight"] * torch.rsqrt(var + BN_EPS)
-    shift = sd[name + ".bias"] - mean * scale
-    return x * scale[None, :, None, None] + shift[None, :, None, None]
-
-
-def resnet(sd, prefix, backbone, x, prec, train=False):
-    """[B, H, W, 3] normalised images -> [B, feat]: the 7x7/2 stem as
-    published, BatchNorm after every conv, mean pool, `fc`."""
-    def conv(t, name, stride, pad):
-        return prec.conv(t, sd[prefix + name + ".weight"], None, stride, pad)
-
-    def bn(t, name):
-        return prec.q(_bn(t, sd, prefix + name, train))
-
-    x = x.permute(0, 3, 1, 2)
-    x = F.relu(bn(conv(x, "conv1", 2, 3), "bn1"))
-    x = F.max_pool2d(x, 3, 2, 1)
-    in_planes = 64
-    for s, n in enumerate(RESNET_STAGES[backbone]):
-        planes = 64 * 2 ** s
-        for b in range(n):
-            stride = 2 if s > 0 and b == 0 else 1
-            p = f"layer{s + 1}.{b}."
-            y = F.relu(bn(conv(x, p + "conv1", stride, 1), p + "bn1"))
-            y = bn(conv(y, p + "conv2", 1, 1), p + "bn2")
-            if stride != 1 or in_planes != planes:
-                x = bn(conv(x, p + "downsample.0", stride, 0),
-                       p + "downsample.1")
-            x = prec.q(F.relu(y + x))
-            in_planes = planes
-    x = x.mean(dim=(2, 3))
-    return prec.linear(x, sd[prefix + "fc.weight"], sd[prefix + "fc.bias"])
-
-
-def vit(sd, prefix, v, x, prec):
-    """ViT-B/16 as the program states it: pre-norm blocks, LayerNorm eps
-    1e-6, tanh GELU, q / sqrt(head dim), CLS readout, `fc`; trailing rows
-    and columns that fill no patch are cropped."""
-    p, d, heads = v["patch"], v["dim"], v["heads"]
-    b, h, w, _ = x.shape
-    hp, wp = h // p, w // p
-    x = x[:, :hp * p, :wp * p].permute(0, 3, 1, 2)
-    x = prec.conv(x, sd[prefix + "patch_embed.proj.weight"],
-                  sd[prefix + "patch_embed.proj.bias"], p, 0)
-    x = x.flatten(2).transpose(1, 2)
-    x = torch.cat([sd[prefix + "cls_token"].expand(b, 1, d), x], 1)
-    x = x + sd[prefix + "pos_embed"]
-    t, hd = x.shape[1], d // heads
-
-    def ln(t_, name):
-        return prec.q(F.layer_norm(t_, (d,), sd[name + ".weight"],
-                                   sd[name + ".bias"], LN_EPS))
-
-    def lin(t_, name):
-        return prec.linear(t_, sd[name + ".weight"], sd[name + ".bias"])
-
-    for i in range(v["depth"]):
-        blk = f"{prefix}blocks.{i}."
-        qkv = lin(ln(x, blk + "norm1"), blk + "attn.qkv")
-        q, k, val = qkv.reshape(b, t, 3, heads, hd).permute(2, 0, 3, 1, 4)
-        att = torch.softmax(prec.q(q / math.sqrt(hd))
-                            @ prec.q(k).transpose(-1, -2), dim=-1)
-        y = (prec.q(att) @ prec.q(val)).transpose(1, 2).reshape(b, t, d)
-        x = prec.q(x + lin(y, blk + "attn.proj"))
-        y = prec.q(F.gelu(lin(ln(x, blk + "norm2"), blk + "mlp.fc1"),
-                          approximate="tanh"))
-        x = prec.q(x + lin(y, blk + "mlp.fc2"))
-    x = ln(x, prefix + "norm")
-    return lin(x[:, 0], prefix + "fc")
-
-
 def encode(sd, m, x, prec, train=False):
-    """The node encoder of model config `m`: [B, H, W, 3] -> [B, feat]."""
-    if m["backbone"] == "vit":
-        return vit(sd, "encoder.", m["vit"], x, prec)
-    return resnet(sd, "feature_extractor.", m["backbone"], x, prec, train)
+    """The node encoder of model config `m` (`encoders/<backbone>.py`):
+    [B, H, W, 3] -> [B, feat]."""
+    return encoders.find(m["backbone"]).forward(sd, m, x, prec, train)
 
 
 def _l2(x, dim):

@@ -7,8 +7,12 @@ The cell, its configuration and its traffic are found by name:
 mix `portbench/traffic/<traffic>.json` names its driver
 `portbench/drivers/<driver>.py`; the cell's limits are
 `portbench/limits/<cell>.json`; a per-layer metric is read by
-`portbench/metrics/<metric>.py`.  A new cell, configuration, mix or
-metric is a new file and a new entry, and no edit.
+`portbench/metrics/<metric>.py`; a configuration's node encoder is
+`portbench/reference/encoders/<backbone>.py` (its reference forward, its
+parameters and their initial kinds, the program's module that holds it),
+and the fields of the configuration's `model.program` section reach the
+program as they stand.  A new cell, configuration, encoder, mix or metric
+is a new file and a new entry, and no edit.
 
 Prints, as the last line of standard output, one JSON object: `correct`,
 `attempted`, `failed`, `metrics` (the cell's end-to-end metrics with

@@ -63,6 +63,18 @@ def test_a_cell_of_new_data_files_is_found_by_name(root):
     assert lines[-1].startswith("check ")
 
 
+def test_the_serve_p95_is_read_per_layer_as_measured(root):
+    """The serve driver hands the readers the same 95th percentile that it
+    reports end to end; a run without it reads None."""
+    run = R.Run(R.Cell("tiny-serve", root), 2 ** 31 + 11, 0.5, False,
+                "cpu")
+    rec = R.execute(run)
+    p95 = rec["metrics"]["request_p95_ms"]
+    assert p95 > 0
+    assert R.read_metric("request_p95_ms.serve", rec["layer"]) == p95
+    assert R.read_metric("request_p95_ms.serve", {}) is None
+
+
 def test_a_new_metric_reader_is_found_by_name(root, tmp_path):
     path = os.path.join(root, "portbench", "metrics", "launches.test.py")
     with open(path, "w") as f:

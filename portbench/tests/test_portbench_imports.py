@@ -50,9 +50,14 @@ def _harness_modules():
 
 
 def _reference_modules():
-    return ["portbench.reference." + os.path.basename(p)[:-3] for p in
-            glob.glob(os.path.join(ROOT, "portbench", "reference", "*.py"))
-            if not p.endswith("__init__.py")] + ["portbench.reference"]
+    """The reference's modules, its encoders among them."""
+    mods = ["portbench.reference", "portbench.reference.encoders"]
+    for pkg in ("reference", "reference/encoders"):
+        mods += ["portbench." + pkg.replace("/", ".") + "."
+                 + os.path.basename(p)[:-3] for p in
+                 glob.glob(os.path.join(ROOT, "portbench", pkg, "*.py"))
+                 if not p.endswith("__init__.py")]
+    return mods
 
 
 @pytest.mark.parametrize("what", ["harness", "program", "reference"])
